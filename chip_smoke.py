@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
-  1. build the hand-written kernel K1 (csrc/fill_grid.cu) with nvcc;
+  1. build the hand-written kernels K1-K3 (csrc/*.cu) with nvcc, one
+     process per source, all at once;
   2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) in
      f32 and f64, (b) at the grid-fill benchmark shape (64 x 16384 x 1024,
      f32) on 8 of the discounts against the f64 plain fill, (c) the
@@ -18,11 +19,25 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      the kernel's launch count over that run;
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
-     for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands.
+     for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands;
+  5. K2 (csrc/fill_table.cu) against its plain version: (a) at (0.4321,
+     200, 64) and edge shapes in f32 and f64, (b) at (16384, 1024) in f32
+     against the f64 plain fill, (c) K2's and the plain f32 fill's times;
+  6. K3 (csrc/fill_table_cols.cu) against its plain version: (a) the
+     tests/test_pallas.py cases and edge shapes, (b) at (2^20, 1024) in
+     f32 against K1 at G=1 in f64, (c) K3's and the plain f32 fill's times
+     at (2^16, 1024), and K3's at (2^20, 1024) as a share of the copy
+     roofline;
+  7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K2),
+     ensure past 2^16 rows (K3), remake, and cli/list_torch.py, held to
+     plain-f64 tables built on the card, with each kernel's launch count
+     over that run and no plain fill on it.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 """
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -65,22 +80,311 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def table_errors(v, s, v64, s64, chunk=64):
+    """Natural-layout (n, m) tables (views allowed) against the f64 ones,
+    in column blocks: max V relative error on live cells, max |dSrel| on
+    finite cells, max absolute error of either; checks the sentinels
+    (V(., 1) = +inf, V = 0 and Srel = -inf where the f64 table has them,
+    no NaN).  ``s``/``s64`` may be None."""
+    v_rel = s_abs = max_abs = 0.0
+    check(bool(torch.isposinf(v[:, 0]).all()), "V(., 1) is not +inf")
+    for j0 in range(0, v.shape[1], chunk):
+        vv, vr = v[:, j0:j0 + chunk].double(), v64[:, j0:j0 + chunk]
+        live = torch.isfinite(vr) & (vr > 0)
+        check(not bool(torch.isnan(vv).any()), "NaN in V")
+        check(bool((vv[torch.isfinite(vr) & (vr == 0)] == 0).all()),
+              "above-diagonal V is not 0")
+        if bool(live.any()):
+            dv = (vv - vr).abs()[live]
+            v_rel = max(v_rel, (dv / vr[live]).max().item())
+            max_abs = max(max_abs, dv.max().item())
+        if s is None:
+            continue
+        ss, sr = s[:, j0:j0 + chunk].double(), s64[:, j0:j0 + chunk]
+        check(not bool(torch.isnan(ss).any()), "NaN in Srel")
+        check(bool((torch.isneginf(ss) == torch.isneginf(sr)).all()),
+              "-inf pattern of Srel differs")
+        fin = torch.isfinite(sr)
+        if bool(fin.any()):
+            ds = (ss - sr).abs()[fin].max().item()
+            s_abs = max(s_abs, ds)
+            max_abs = max(max_abs, ds)
+    return v_rel, s_abs, max_abs
+
+
 def fill_errors(v, s, v64, s64):
-    """Max V relative error on live cells, max |dSrel| on finite cells,
-    max absolute error of either; checks the sentinel pattern."""
-    live = torch.isfinite(v64) & (v64 > 0)
-    dv = (v.double() - v64).abs()
-    v_rel = (dv[live] / v64[live]).max().item()
+    """table_errors over the G tables of a grid fill, (G, n, m) each."""
+    errs = [table_errors(v[g], s[g], v64[g], s64[g])
+            for g in range(v.shape[0])]
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+def scaled_err(s, s64):
+    """max |dSrel| / max(1, |Srel|) over the finite cells."""
     fin = torch.isfinite(s64)
-    ds = (s.double() - s64).abs()[fin]
-    check(bool(torch.isposinf(v[:, :, 0]).all()), "V(., 1) is not +inf")
-    check(not bool(torch.isnan(v).any() or torch.isnan(s).any()),
-          "NaN in the kernel's tables")
-    check(bool((v[torch.isfinite(v64) & (v64 == 0)] == 0).all()),
-          "above-diagonal V is not 0")
-    check(bool((torch.isneginf(s) == torch.isneginf(s64)).all()),
-          "-inf pattern of Srel differs")
-    return v_rel, ds.max().item(), max(dv[live].max().item(), ds.max().item())
+    if not bool(fin.any()):
+        return 0.0
+    return ((s.double() - s64).abs()[fin]
+            / s64[fin].abs().clamp(min=1.0)).max().item()
+
+
+# edge shapes: m = 1, n < m, a = 0, m not a multiple of 8 / 32 / the thread
+# count, n not a multiple of a warp's 32-row group
+EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
+              (0.2, 1, 1), (0.55, 3000, 1500)]
+
+
+def phase5_k2(dev, sc, stirling, card):
+    """K2 against its plain version; returns its kernels-line fields."""
+    t0 = phase("5a K2 vs plain at (0.4321, 200, 64) and edge shapes")
+    for a, n, m in [(0.4321, 200, 64)] + EDGE_CASES:
+        v64, s64 = sc.fill_table_ref(torch.tensor(a, dtype=torch.float64,
+                                                  device=dev), n, m)
+        for dt, v_tol, s_tol in ((torch.float32, 2e-5, 1e-4),
+                                 (torch.float64, 1e-12, 1e-10)):
+            v, s = sc.fill_table_cuda(torch.tensor(a, dtype=dt, device=dev),
+                                      n, m)
+            torch.cuda.synchronize()
+            v_rel, s_abs, _ = table_errors(v, s, v64, s64)
+            # |dSrel| scaled by max(1, |Srel|): one f32 rounding of an
+            # |Srel| ~ 1e4 (m ~ 1500) is 5e-4 absolute
+            s_sc = scaled_err(s, s64)
+            check(v_rel < v_tol and s_sc < s_tol,
+                  f"K2 {dt} at ({a}, {n}, {m}): V rel {v_rel:.3g}, "
+                  f"scaled |dSrel| {s_sc:.3g} (|dSrel| {s_abs:.3g})")
+            check((a, n, m) != (0.4321, 200, 64) or s_abs < s_tol,
+                  f"K2 {dt} at (0.4321, 200, 64): |dSrel| {s_abs:.3g}")
+            if dt == torch.float32 and n >= 2:
+                k = min(n, m)
+                s1 = torch.as_tensor(stirling.s1_host(a, k), device=dev)
+                diag = torch.diagonal(s[:k, :k]).double()[1:]
+                check(bool(((diag + s1[1:]).abs()
+                             < 2e-5 * s1[1:].abs().clamp(min=1.0)).all()),
+                      f"K2 diagonal != -S1 at a={a}")
+        v_n, s_n = sc.fill_table_cuda(torch.tensor(a, device=dev), n, m,
+                                      with_srel=False)
+        check(s_n is None and torch.equal(
+            v_n, sc.fill_table_cuda(torch.tensor(a, device=dev), n, m)[0]),
+            "K2 with_srel=False path")
+    done(t0)
+
+    t0 = phase("5b K2 vs f64 plain at (16384, 1024)")
+    N, M = 1 << 14, 1024
+    a32 = torch.tensor(0.5, device=dev)
+    v, s = sc.fill_table_cuda(a32, N, M)
+    torch.cuda.synchronize()
+    v64, s64 = sc.fill_table_ref(a32.double(), N, M)
+    v_rel, s_abs, max_abs = table_errors(v, s, v64, s64)
+    print(f"   V max rel err {v_rel:.6g}, max |dSrel| {s_abs:.6g}, "
+          f"max abs err {max_abs:.6g}")
+    check(v_rel < 1e-4 and s_abs <= 5e-2,
+          f"K2 (16384, 1024): V rel {v_rel:.3g} (< 1e-4), |dSrel| "
+          f"{s_abs:.3g} (<= 5e-2)")
+    del v, s, v64, s64
+    done(t0)
+
+    t0 = phase("5c K2 times at (16384, 1024) (CUDA events)")
+    k_ms = cuda_ms(lambda: sc.fill_table_cuda(a32, N, M), 5)
+    p_ms = cuda_ms(lambda: sc.fill_table_ref(a32, N, M), 1)
+    print(f"   K2 {k_ms:.4f} ms (median of 5); plain f32 fill {p_ms:.1f} ms "
+          f"(one run) [{card}]")
+    done(t0)
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase6_k3(dev, sc, stirling, card, roof):
+    """K3 against its plain version and K1; returns its kernels-line
+    fields."""
+    t0 = phase("6a K3 vs plain: test_pallas cases and edge shapes")
+    cases = [(0.4321, 200, 64), (0.55, 512, 48), (0.05, 384, 32),
+             (0.0, 256, 24)]
+    for a, n, m in cases + EDGE_CASES:
+        v64, s64 = sc.fill_table_ref(torch.tensor(a, dtype=torch.float64,
+                                                  device=dev), n, m)
+        for dt in (torch.float32, torch.float64):
+            v, s = sc.fill_table_cols_cuda(
+                torch.tensor(a, dtype=dt, device=dev), n, m)
+            torch.cuda.synchronize()
+            check(tuple(v.shape) == (m, n), "K3 layout is (m, n)")
+            v, s = v.T, s.T
+            v_rel, _, _ = table_errors(v, s, v64, s64)
+            s_sc = scaled_err(s, s64)
+            fin = torch.isfinite(s64)
+            tol = (3e-5, 1e-4) if dt == torch.float32 else (1e-12, 1e-12)
+            check(v_rel < tol[0] and s_sc < tol[1],
+                  f"K3 {dt} at ({a}, {n}, {m}): V rel {v_rel:.3g}, scaled "
+                  f"|dSrel| {s_sc:.3g}")
+            check(bool((v[~fin] == 0).all() and torch.isneginf(s[~fin]).all()),
+                  "K3: V 0 / Srel -inf above the diagonal")
+    v_n, s_n = sc.fill_table_cols_cuda(torch.tensor(0.3, device=dev), 300, 40,
+                                       with_srel=False)
+    check(s_n is None and torch.equal(v_n, sc.fill_table_cols_cuda(
+        torch.tensor(0.3, device=dev), 300, 40)[0]), "K3 with_srel=False")
+    done(t0)
+
+    t0 = phase("6b K3 (f32) vs K1 at G=1 (f64) at (2^20, 1024)")
+    N, M = 1 << 20, 1024
+    a32 = torch.tensor(0.5, device=dev)
+    v, s = sc.fill_table_cols_cuda(a32, N, M)
+    v64, s64 = sc.fill_grid_cuda(a32.double().reshape(1), N, M)
+    torch.cuda.synchronize()
+    v_rel, s_abs, max_abs = table_errors(v.T, s.T, v64[0], s64[0])
+    print(f"   V max rel err {v_rel:.6g}, max |dSrel| {s_abs:.6g}, "
+          f"max abs err {max_abs:.6g}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    check(v_rel < 1e-4 and s_abs <= 5e-2,
+          f"K3 (2^20, 1024): V rel {v_rel:.3g} (< 1e-4), |dSrel| "
+          f"{s_abs:.3g} (<= 5e-2)")
+    del v, s, v64, s64
+    torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase("6c K3 times (CUDA events)")
+    n16 = 1 << 16
+    k16 = cuda_ms(lambda: sc.fill_table_cols_cuda(a32, n16, M), 5)
+    p16 = cuda_ms(lambda: sc.fill_table_cols_ref(a32, n16, M), 1)
+    k20 = cuda_ms(lambda: sc.fill_table_cols_cuda(a32, N, M), 3)
+    bw = 2 * 4 * N * M / (k20 * 1e-3)
+    print(f"   (2^16, 1024): K3 {k16:.4f} ms (median of 5), plain f32 fill "
+          f"{p16:.1f} ms (one run); (2^20, 1024): K3 {k20:.4f} ms (median "
+          f"of 3) = {bw / 1e9:.1f} GB/s = {100 * bw / roof:.1f}% of the "
+          f"copy roofline [{card}]")
+    done(t0)
+    return {"max_abs_err": max_abs, "ms": k16, "plain_ms": p16}
+
+
+def plain_table(stirling, t, n, m, a, dev):
+    """A plain-f64 table on the card with ``t``'s bounds: fill_rows (not a
+    kernel) and the host S1."""
+    from scipy.special import gammaln
+    vtab, srel, _ = stirling.fill_rows(a, n, m, dtype=torch.float64,
+                                       device=dev)
+    s1 = torch.as_tensor(stirling.s1_host(a, n), device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return stirling.StirlingTable(
+        a=torch.tensor(a, **f64), lga1=torch.tensor(gammaln(1.0 - a), **f64),
+        s1_hi=s1, s1_lo=torch.zeros_like(s1), vtab=vtab, srel=srel,
+        n_max=n, m_max=m, max_n=t.max_n, max_m=t.max_m,
+        use_asympt=t.use_asympt, a_pos=a > 0)
+
+
+def check_queries(t, ref, n, m, what):
+    """Every query of ``t`` (f32) against the plain-f64 ``ref`` at the
+    points (n, m): same -inf / 0 pattern; S, S1 within 1e-6 relative +
+    5e-2 (one f32 rounding of log S); Srel within 5e-2; V, U, UV within
+    1e-4 relative."""
+    dev = t.device
+    n = torch.as_tensor(n, device=dev)
+    m = torch.as_tensor(m, device=dev)
+    worst = {}
+    for q, rtol, atol in (("S", 1e-6, 5e-2), ("Srel", 0.0, 5e-2),
+                          ("V", 1e-4, 0.0), ("U", 1e-4, 0.0),
+                          ("UV", 1e-4, 0.0), ("S1", 1e-6, 5e-2)):
+        args = (n,) if q == "S1" else (n, m)
+        got = getattr(t, q)(*args).double()
+        want = getattr(ref, q)(*args)
+        check(bool((torch.isneginf(got) == torch.isneginf(want)).all()
+                   and (torch.isposinf(got) == torch.isposinf(want)).all()
+                   and ((got == 0) == (want == 0)).all()),
+              f"{what}: {q} sentinel pattern differs")
+        fin = torch.isfinite(want)
+        diff = (got - want).abs()[fin]
+        bound = rtol * want[fin].abs() + atol
+        err = torch.where(bound > 0, diff / bound,
+                          torch.where(diff == 0, 0.0, torch.inf))
+        err = err.max().item() if err.numel() else 0.0
+        worst[q] = err
+        check(err <= 1.0, f"{what}: {q} off by {err:.3g} x its bound")
+    return worst
+
+
+def phase7_table(dev, sc, stirling, card):
+    """The single-table path end to end; returns each kernel's launches."""
+    t0 = phase("7 single-table path: make (K2), ensure (K3), remake, "
+               "list_torch")
+    plain_calls = []
+    fill_rows = stirling.fill_rows
+
+    def counted(*args, **kw):
+        plain_calls.append(args[:3])
+        return fill_rows(*args, **kw)
+
+    rng = np.random.default_rng(0)
+    for name in sc.LAUNCHES:
+        sc.LAUNCHES[name] = 0
+    stirling.fill_rows = counted
+    try:
+        t_run = time.perf_counter()
+        t = stirling.make(1000, 200, 10 ** 6, 10 ** 4, 0.5, use_asympt=True,
+                          device=dev)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t_run
+        k2_make = sc.LAUNCHES["fill_table"]
+        t_run = time.perf_counter()
+        t2 = stirling.ensure(t, 70000, 200)
+        torch.cuda.synchronize()
+        ensure_s = time.perf_counter() - t_run
+        t3 = stirling.remake(t2, 0.3)
+        torch.cuda.synchronize()
+        sys.path.insert(0, os.path.join(ROOT, "cli"))
+        import list_torch
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            list_torch.main(["--device", "cuda", "--asymptote"])
+        torch.cuda.synchronize()
+    finally:
+        stirling.fill_rows = fill_rows
+    launches = dict(sc.LAUNCHES)
+    print(f"   launches on this path: {launches}; plain fills "
+          f"{len(plain_calls)}")
+    check(launches["fill_table"] >= 1 and launches["fill_table_cols"] >= 1,
+          "the single-table path did not launch both K2 and K3")
+    check(not plain_calls, "the plain fill ran on the single-table path")
+    print("   " + "\n   ".join(buf.getvalue().strip().splitlines()[-3:]))
+
+    check(not t.cols and k2_make == 1 and t.report().endswith(
+        f"float32 mem={(2 * 1000 * 200 * 4 + 2 * 1000 * 4) // 1024}k"),
+        f"make: {t.report()}")
+    ref = plain_table(stirling, t, 1000, 200, 0.5, dev)
+    s_200_43 = float(t.S(200, 43))
+    check(abs(s_200_43 - 763.6337) < 1e-3, f"S(200, 43) = {s_200_43}")
+    n = np.concatenate([[200, 1000, 2, 1, 7, 9, 3, 1500, 2 * 10 ** 6],
+                        rng.integers(1, 1001, 300),
+                        rng.integers(1001, 3 * 10 ** 6, 40)])
+    m = np.concatenate([[43, 200, 2, 1, 7, 1, 5, 5, 5],
+                        rng.integers(1, 201, 340)])
+    m[9:30] = n[9:30]                       # the diagonal identity
+    m[30:50] = 1                            # S1
+    w1 = check_queries(t, ref, n, m, "make")
+    check(float(t.S(7, 7)) == 0.0 and np.isneginf(float(t.S(3, 5)))
+          and float(t.S(9, 1)) == float(t.S1(9)), "make: identities")
+    asy = float(stirling.s_asympt(0.5, ref.lga1, torch.tensor(
+        2.0e6, dtype=torch.float64), 5))
+    check(abs(float(t.S(2 * 10 ** 6, 5)) - asy) < 1e-6 * abs(asy) + 5e-2,
+          "make: the asymptote beyond max_n")
+
+    check(t2.cols and (t2.n_max, t2.m_max) == (81920, 256),
+          f"ensure(70000, 200): {t2.report()}")
+    ref2 = plain_table(stirling, t2, t2.n_max, t2.m_max, 0.5, dev)
+    n2 = np.concatenate([[70001, 81920, 65536, 200], rng.integers(
+        1, 81921, 300), rng.integers(81921, 10 ** 6, 20)])
+    m2 = np.concatenate([[200, 256, 100, 43], rng.integers(1, 257, 320)])
+    m2[4:24] = n2[4:24] % 257
+    w2 = check_queries(t2, ref2, n2, m2, "ensure")
+    check(abs(float(t2.S(200, 43)) - 763.6337) < 1e-3, "ensure: S(200, 43)")
+
+    check(t3.cols and float(t3.a) == np.float32(0.3), "remake")
+    ref3 = plain_table(stirling, t3, 2000, t3.m_max, float(t3.a), dev)
+    n3 = rng.integers(1, 2001, 300)
+    m3 = rng.integers(1, 257, 300)
+    w3 = check_queries(t3, ref3, n3, m3, "remake")
+    print(f"   make {make_s:.3f} s, ensure to {t2.n_max} x {t2.m_max} "
+          f"{ensure_s:.3f} s (host clock, incl. S1); worst error / bound: "
+          f"make {max(w1.values()):.3g}, ensure {max(w2.values()):.3g}, "
+          f"remake {max(w3.values()):.3g}; S(200, 43) = {s_200_43:.6f} "
+          f"[{card}]")
+    done(t0)
+    return launches
 
 
 def main():
@@ -103,9 +407,11 @@ def main():
     from libstb_tpu_torch.ops import stirling_cuda as sc
     done(t0)
 
-    t0 = phase("1 build K1")
-    sc.load()
-    done(t0, f"({sc.SOURCE.name} -> sm_90a)")
+    t0 = phase("1 build K1, K2, K3")
+    sc.build_all()
+    for name in sc.KERNELS:
+        sc.load(name)
+    done(t0, f"({', '.join(p.name for p in sc.SOURCES.values())} -> sm_90a)")
 
     t0 = phase("2a K1 vs plain at (8, 160, 48)")
     avec = torch.linspace(0.0, 0.9, 8, dtype=torch.float64, device=dev)
@@ -164,7 +470,8 @@ def main():
     done(t0)
 
     t0 = phase("3 main path: make_grid + run_gibbs (1024 chains x 500)")
-    sc.LAUNCHES = 0
+    for name in sc.LAUNCHES:
+        sc.LAUNCHES[name] = 0
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
     cfg = driver.GibbsConfig(iters=500, bcycle=2, acycle=5)
@@ -173,7 +480,7 @@ def main():
                            grid, 1024, 0.5, 10.0, cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = sc.LAUNCHES
+    launches = sc.LAUNCHES["fill_grid"]
     check(launches >= 1, "the main path did not launch K1")
     for k in ("tave", "Tave", "aave", "bave", "t", "T", "a", "b"):
         check(bool(torch.isfinite(out[k].double()).all()), f"{k} not finite")
@@ -223,6 +530,10 @@ def main():
     check(ok, "gate: a posterior moment is outside its band")
     done(t0)
 
+    k2 = phase5_k2(dev, sc, stirling, card)
+    k3 = phase6_k3(dev, sc, stirling, card, roof)
+    table_launches = phase7_table(dev, sc, stirling, card)
+
     print(json.dumps({"kernels": [{
         "name": "fill_grid",
         "route": "cuda",
@@ -232,6 +543,20 @@ def main():
         "max_abs_err": max_abs,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "fill_table",
+        "route": "cuda",
+        "source": "libstb_tpu_torch/csrc/fill_table.cu",
+        "replaces": "libstb_tpu/ops/stirling_pallas.py:293",
+        "launches": table_launches["fill_table"],
+        **k2,
+    }, {
+        "name": "fill_table_cols",
+        "route": "cuda",
+        "source": "libstb_tpu_torch/csrc/fill_table_cols.cu",
+        "replaces": "libstb_tpu/ops/stirling_pallas.py:652",
+        "launches": table_launches["fill_table_cols"],
+        **k3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

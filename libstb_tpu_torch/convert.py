@@ -12,10 +12,11 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core import agrid
+from .core import agrid, stirling
 from .models import pyp
 
-__all__ = ["grid_from_numpy", "data_from_numpy", "state_from_numpy"]
+__all__ = ["grid_from_numpy", "table_from_numpy", "data_from_numpy",
+           "state_from_numpy"]
 
 GRID_ARRAYS = ("avec", "s1_hi", "s1_lo", "vtab", "srel")
 GRID_STATICS = ("a0", "da", "g_max", "n_max", "m_max", "max_n", "max_m",
@@ -37,6 +38,58 @@ def grid_from_numpy(arrays: Mapping, statics: Mapping,
         **{k: dev(arrays[k]) for k in GRID_ARRAYS},
         max_n=int(statics["max_n"]), max_m=int(statics["max_m"]),
         use_asympt=bool(statics["use_asympt"]))
+
+
+TABLE_ARRAYS = ("a", "lga1", "s1_hi", "s1_lo", "vtab", "srel")
+TABLE_STATICS = ("n_max", "m_max", "max_n", "max_m", "use_asympt",
+                 "scan_chunks", "tag", "a_pos", "fold")
+
+
+def _unfold(tab, n_max: int, scan_chunks: int, fold: int):
+    """A JAX table array in its natural (n_max, m_max) layout.
+
+    fold > 0: (N, fold, M // fold), column j at [:, j // L, j % L], so a
+    reshape restores it.  scan_chunks > 0: the column-major n-permuted
+    (M, H, S, 128) layout, natural row i of column j at
+    [j, i % H, (i // H) // 128, (i // H) % 128] -- unfolded with the
+    arithmetic of stirling_pallas.unfold_cols."""
+    tab = np.array(tab)
+    if fold:
+        return tab.reshape(tab.shape[0], -1)
+    if scan_chunks:
+        m = tab.shape[0]
+        tab = tab.reshape(m, -1)
+        h = tab.shape[1] // scan_chunks
+        return tab.reshape(m, h, scan_chunks).transpose(2, 1, 0).reshape(
+            -1, m)[:n_max]
+    return tab
+
+
+def table_from_numpy(arrays: Mapping, statics: Mapping,
+                     device) -> stirling.StirlingTable:
+    """The port's natural-layout StirlingTable from a JAX StirlingTable's
+    arrays (``TABLE_ARRAYS``; vtab or srel may be None) and static fields
+    (``TABLE_STATICS``), in any of the JAX layouts (natural, fold,
+    scan_chunks)."""
+    def dev(x):
+        if x is None:
+            return None
+        return torch.as_tensor(np.ascontiguousarray(_unfold(
+            x, int(statics["n_max"]), int(statics["scan_chunks"]),
+            int(statics["fold"]))), device=device)
+
+    def scalar(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    return stirling.StirlingTable(
+        a=scalar(arrays["a"]), lga1=scalar(arrays["lga1"]),
+        s1_hi=torch.as_tensor(np.array(arrays["s1_hi"]), device=device),
+        s1_lo=torch.as_tensor(np.array(arrays["s1_lo"]), device=device),
+        vtab=dev(arrays["vtab"]), srel=dev(arrays["srel"]),
+        n_max=int(statics["n_max"]), m_max=int(statics["m_max"]),
+        max_n=int(statics["max_n"]), max_m=int(statics["max_m"]),
+        use_asympt=bool(statics["use_asympt"]), tag=str(statics["tag"]),
+        a_pos=statics["a_pos"])
 
 
 def data_from_numpy(data) -> pyp.PYPData:

@@ -1,17 +1,29 @@
-"""Discount-grid table fill: the CUDA kernel K1 and its plain version.
+"""Stirling table fills: the hand-written CUDA kernels and their plain
+versions.
 
-``fill_grid`` is the port of libstb_tpu/ops/stirling_pallas.fill_grid.  A
-tensor on the CPU goes to ``fill_grid_ref``, the plain PyTorch fill
-(core/stirling.fill_rows batched over the grid -- the same function the
-JAX package runs off the TPU); a CUDA tensor goes to ``fill_grid_cuda``,
-which launches the hand-written kernel in csrc/fill_grid.cu or raises.
-Nothing falls back from the kernel to the plain version.
+Three kernels, each the port of one Pallas kernel of
+libstb_tpu/ops/stirling_pallas.py:
 
-The kernel is compiled with nvcc for sm_90a into a shared library with a
+* K1 ``fill_grid`` (csrc/fill_grid.cu): V and Srel for a grid of
+  discounts, (G, n, m) row-major;
+* K2 ``fill_table`` (csrc/fill_table.cu): one discount by the row walk,
+  (n, m) row-major;
+* K3 ``fill_table_cols`` (csrc/fill_table_cols.cu): one discount by a
+  parallel scan over n, one column at a time, written column-major
+  (m, n).
+
+Each public function runs where its discount tensor lies: on the CPU the
+``*_ref`` plain version (core/stirling.fill_rows, the same function the
+JAX package runs off the TPU), on a CUDA device the ``*_cuda`` launcher,
+which launches the kernel or raises.  Nothing falls back from a kernel to
+a plain version.
+
+Each kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C interface on first use, from the source in this package only, into
 ``libstb_tpu_torch/_build/`` keyed by a hash of the source and flags, and
-bound with ctypes.  ``LAUNCHES`` counts the kernel's launches, so a run can
-show that its grid fill went through the kernel.
+bound with ctypes; ``build_all`` starts one nvcc per source, all at once.
+``LAUNCHES[name]`` counts each kernel's launches, so a run can show that
+its fills went through the kernels.
 """
 from __future__ import annotations
 
@@ -26,23 +38,43 @@ import torch
 
 from ..core import stirling
 
-__all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref", "build", "load",
-           "LAUNCHES"]
+__all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref",
+           "fill_table", "fill_table_cuda", "fill_table_ref",
+           "fill_table_cols", "fill_table_cols_cuda", "fill_table_cols_ref",
+           "build_all", "load", "KERNELS", "LAUNCHES"]
 
-LAUNCHES = 0
+KERNELS = ("fill_grid", "fill_table", "fill_table_cols")
+LAUNCHES = {name: 0 for name in KERNELS}
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fill_grid.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-# the kernel gives each thread at most 8 columns (csrc/fill_grid.cu:launch);
-# its double-buffered f64 row of 1/V then takes at most 128 KB of the 227 KB
+# K1 gives each thread at most 8 columns (csrc/fill_grid.cu:launch); its
+# double-buffered f64 row of 1/V then takes at most 128 KB of the 227 KB
 # of shared memory a block may use
 _MAX_M = 8192
-_MAX_N_F32 = 1 << 24                  # the TPU kernel's f32 row-index bound
+# K2 keeps the same double-buffered f64 row with up to 16 columns a
+# thread: 14336 columns take 224 KB (csrc/fill_table.cu:launch)
+TABLE_MAX_M = 14336
+_MAX_N_F32 = 1 << 24                  # the TPU kernels' f32 row-index bound
+# K3 takes n < 2^24 rows, the bound of the JAX kernel it replaces
+COLS_MAX_N = 1 << 24
+# K3's f64 scratch: 1/V of two columns, the Kahan pair of Srel, and the
+# per-block maps (csrc/fill_table_cols.cu: kMaxBlocks)
+_COLS_MAX_BLOCKS = 1024
 
-_lib = None
+_libs: dict = {}
+_ARGTYPES = {
+    # (a or avec, V, Srel, [scratch,] ints..., stream)
+    "fill_grid": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "fill_table": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "fill_table_cols": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+}
 
 
 def _nvcc() -> str:
@@ -54,39 +86,79 @@ def _nvcc() -> str:
         return found
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("fill_grid: nvcc not found (set CUDA_HOME)")
+    raise RuntimeError("stirling_cuda: nvcc not found (set CUDA_HOME)")
 
 
-def build() -> Path:
-    """Compile csrc/fill_grid.cu (once per source hash); returns the .so."""
-    src = SOURCE.read_bytes()
+def _target(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"fill_grid_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, out)                 # atomic against concurrent builds
-    return out
+    return _BUILD_DIR / f"{name}_{tag}.so"
 
 
-def load():
-    """Build the kernel if needed and bind its library (once)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("stb_fill_grid_f32", "stb_fill_grid_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+def build_all(names=KERNELS) -> dict:
+    """Compile every named kernel not yet built, one nvcc process per
+    source, all started together; returns {name: .so path}."""
+    outs = {name: _target(name) for name in names}
+    procs = {}
+    for name, out in outs.items():
+        if out.exists():
+            continue
+        _BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {SOURCES[name].name}:\n{err}")
+        else:
+            os.replace(tmp, outs[name])  # atomic against concurrent builds
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
+def load(name: str):
+    """Build kernel ``name`` if needed and bind its library (once)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"stb_{name}_{suffix}")
+            fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
+
+def _check_cuda(fn: str, a: torch.Tensor, n_max: int, m_max: int):
+    if a.device.type != "cuda":
+        raise ValueError(f"{fn}: the discount lies on {a.device}, not on a "
+                         "CUDA device")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{fn}: dtype {a.dtype} (float32 or float64 only)")
+    if not a.is_contiguous():
+        raise ValueError(f"{fn}: the discount tensor must be contiguous")
+    if n_max < 1 or m_max < 1:
+        raise ValueError(f"{fn}: empty table ({n_max}, {m_max})")
+    if a.dtype == torch.float32 and n_max >= _MAX_N_F32:
+        raise ValueError(f"{fn}: n_max={n_max} >= 2^24 in f32")
+
+
+def _launch(name: str, a: torch.Tensor, *args):
+    lib = load(name)
+    fn = getattr(lib, f"stb_{name}_"
+                 f"{'f32' if a.dtype == torch.float32 else 'f64'}")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+# -- K1: the discount grid ---------------------------------------------------
 
 def fill_grid_ref(avec: torch.Tensor, n_max: int, m_max: int,
                   with_srel: bool = True):
@@ -100,38 +172,19 @@ def fill_grid_ref(avec: torch.Tensor, n_max: int, m_max: int,
 def fill_grid_cuda(avec: torch.Tensor, n_max: int, m_max: int,
                    with_srel: bool = True):
     """Launch K1 on ``avec``'s device; same outputs as fill_grid_ref."""
-    global LAUNCHES
-    if avec.device.type != "cuda":
-        raise ValueError(f"fill_grid_cuda: avec lies on {avec.device}, "
-                         "not on a CUDA device")
-    if avec.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fill_grid_cuda: dtype {avec.dtype} "
-                        "(float32 or float64 only)")
-    if avec.ndim != 1 or not avec.is_contiguous():
-        raise ValueError("fill_grid_cuda: avec must be a contiguous (G,) "
-                         "vector")
-    if n_max < 1 or m_max < 1:
-        raise ValueError(f"fill_grid_cuda: empty table ({n_max}, {m_max})")
-    if avec.dtype == torch.float32 and n_max >= _MAX_N_F32:
-        raise ValueError(f"fill_grid_cuda: n_max={n_max} >= 2^24 in f32")
+    _check_cuda("fill_grid_cuda", avec, n_max, m_max)
+    if avec.ndim != 1:
+        raise ValueError("fill_grid_cuda: avec must be a (G,) vector")
     if m_max > _MAX_M:
         raise ValueError(f"fill_grid_cuda: m_max={m_max} > {_MAX_M}, the "
                          "kernel's shared row buffer")
-    lib = load()
-    fn = (lib.stb_fill_grid_f32 if avec.dtype == torch.float32
-          else lib.stb_fill_grid_f64)
     g = avec.shape[0]
     vtab = torch.empty((g, n_max, m_max), dtype=avec.dtype,
                        device=avec.device)
     srel = torch.empty_like(vtab) if with_srel else None
-    with torch.cuda.device(avec.device):
-        stream = torch.cuda.current_stream(avec.device).cuda_stream
-        err = fn(avec.data_ptr(), vtab.data_ptr(),
-                 srel.data_ptr() if with_srel else None,
-                 g, n_max, m_max, int(with_srel), stream)
-    if err != 0:
-        raise RuntimeError(f"fill_grid kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    _launch("fill_grid", avec, vtab.data_ptr(),
+            srel.data_ptr() if with_srel else None,
+            g, n_max, m_max, int(with_srel))
     return vtab, srel
 
 
@@ -143,3 +196,80 @@ def fill_grid(avec: torch.Tensor, n_max: int, m_max: int,
     if avec.device.type == "cpu":
         return fill_grid_ref(avec, n_max, m_max, with_srel)
     return fill_grid_cuda(avec, n_max, m_max, with_srel)
+
+
+# -- K2: one table by the row walk -------------------------------------------
+
+def fill_table_ref(a: torch.Tensor, n_max: int, m_max: int,
+                   with_srel: bool = True):
+    """Plain PyTorch fill of one table at the 0-dim discount ``a``:
+    (V, Srel) of shape (n_max, m_max), Srel None without ``with_srel``."""
+    vtab, srel, _ = stirling.fill_rows(a, n_max, m_max, dtype=a.dtype,
+                                       with_srel=with_srel)
+    return vtab, srel
+
+
+def fill_table_cuda(a: torch.Tensor, n_max: int, m_max: int,
+                    with_srel: bool = True):
+    """Launch K2 on ``a``'s device; same outputs as fill_table_ref."""
+    _check_cuda("fill_table_cuda", a, n_max, m_max)
+    if a.numel() != 1:
+        raise ValueError("fill_table_cuda: one discount only")
+    if m_max > TABLE_MAX_M:
+        raise ValueError(f"fill_table_cuda: m_max={m_max} > {TABLE_MAX_M}, "
+                         "the kernel's shared row buffer")
+    vtab = torch.empty((n_max, m_max), dtype=a.dtype, device=a.device)
+    srel = torch.empty_like(vtab) if with_srel else None
+    _launch("fill_table", a, vtab.data_ptr(),
+            srel.data_ptr() if with_srel else None,
+            n_max, m_max, int(with_srel))
+    return vtab, srel
+
+
+def fill_table(a: torch.Tensor, n_max: int, m_max: int,
+               with_srel: bool = True):
+    """V (and Srel) of one table at discount ``a`` (a 0-dim tensor in the
+    table's dtype), (n_max, m_max) row-major.  Runs where ``a`` lies: the
+    plain fill on the CPU, K2 on a CUDA device."""
+    if a.device.type == "cpu":
+        return fill_table_ref(a, n_max, m_max, with_srel)
+    return fill_table_cuda(a, n_max, m_max, with_srel)
+
+
+# -- K3: one table by columns, a parallel scan over n -------------------------
+
+def fill_table_cols_ref(a: torch.Tensor, n_max: int, m_max: int,
+                        with_srel: bool = True):
+    """Plain PyTorch fill in K3's layout: (V, Srel) of shape (m_max,
+    n_max), [j, i] holding n = i+1, m = j+1."""
+    vtab, srel = fill_table_ref(a, n_max, m_max, with_srel)
+    return (vtab.T.contiguous(),
+            srel.T.contiguous() if srel is not None else None)
+
+
+def fill_table_cols_cuda(a: torch.Tensor, n_max: int, m_max: int,
+                         with_srel: bool = True):
+    """Launch K3 on ``a``'s device; same outputs as fill_table_cols_ref."""
+    _check_cuda("fill_table_cols_cuda", a, n_max, m_max)
+    if a.numel() != 1:
+        raise ValueError("fill_table_cols_cuda: one discount only")
+    if n_max >= COLS_MAX_N:
+        raise ValueError(f"fill_table_cols_cuda: n_max={n_max} >= 2^24")
+    vtab = torch.empty((m_max, n_max), dtype=a.dtype, device=a.device)
+    srel = torch.empty_like(vtab) if with_srel else None
+    scratch = torch.empty(4 * n_max + 2 * _COLS_MAX_BLOCKS,
+                          dtype=torch.float64, device=a.device)
+    _launch("fill_table_cols", a, vtab.data_ptr(),
+            srel.data_ptr() if with_srel else None, scratch.data_ptr(),
+            n_max, m_max, int(with_srel))
+    return vtab, srel
+
+
+def fill_table_cols(a: torch.Tensor, n_max: int, m_max: int,
+                    with_srel: bool = True):
+    """V (and Srel) of one table at discount ``a``, column-major (m_max,
+    n_max).  Runs where ``a`` lies: the plain fill on the CPU, K3 on a
+    CUDA device."""
+    if a.device.type == "cpu":
+        return fill_table_cols_ref(a, n_max, m_max, with_srel)
+    return fill_table_cols_cuda(a, n_max, m_max, with_srel)

@@ -1,0 +1,201 @@
+"""Port parity: the single-table fills (libstb_tpu_torch.ops.stirling_cuda
+fill_table / fill_table_cols, kernels K2 / K3) vs the JAX Pallas kernels
+run in interpret mode (libstb_tpu.ops.stirling_pallas).
+
+On the CPU the port's fills are their plain versions; the CUDA kernels'
+own cases are marked ``cuda`` and skip without a device (chip_smoke.py
+runs the same comparisons on the card)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libstb_tpu.core import stirling as jst
+from libstb_tpu.ops import stirling_pallas as sp
+from libstb_tpu_torch.core import stirling as tst
+from libstb_tpu_torch.ops import stirling_cuda as sc
+
+torch.set_num_threads(1)
+
+A1, N1, M1 = 0.4321, 200, 64
+COLS_CASES = [            # tests/test_pallas.py:119-124
+    (0.4321, 200, 64, 128),     # N not a multiple of chunks
+    (0.55, 512, 48, 256),       # two sublanes of chunks
+    (0.05, 384, 32, 128),       # small discount
+    (0.0, 256, 24, 128),        # a == 0 (DP limit)
+]
+# edge shapes: m = 1, n < m, a = 0, m not a multiple of 8 / 32 / the
+# thread count, n not a multiple of a warp's 32-row group
+EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
+              (0.2, 1, 1), (0.55, 3000, 1500)]
+
+
+@pytest.fixture(scope="module")
+def pallas_table():
+    vt, sr = sp.fill_table(A1, N1, M1, row_block=32, interpret=True)
+    return np.asarray(vt), np.asarray(sr)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _a(a, dtype=torch.float64, device="cpu"):
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_table_ref_matches_pallas(pallas_table, dtype):
+    """The bounds of tests/test_pallas.py:81-96: V rtol 2e-5 on live
+    cells, |dSrel| < 1e-4, identical -inf pattern; diagonal = -S1 within
+    2e-5."""
+    pv, ps = pallas_table
+    tv, ts = (x.double().numpy() for x in sc.fill_table(_a(A1, dtype),
+                                                         N1, M1))
+    assert tv.shape == ts.shape == (N1, M1)
+    live = np.isfinite(tv) & (tv > 0)
+    np.testing.assert_allclose(pv[live], tv[live], rtol=2e-5)
+    assert np.abs(pv[np.isfinite(tv) & (tv == 0)]).max() < 1e-25
+    fin = np.isfinite(ts)
+    assert np.max(np.abs(ps[fin] - ts[fin])) < 1e-4
+    np.testing.assert_array_equal(np.isneginf(ps), np.isneginf(ts))
+    s1 = jst.s1_host(A1, M1)
+    np.testing.assert_allclose(np.diagonal(ts)[1:], -s1[1:], atol=2e-5)
+
+
+@pytest.mark.parametrize("a,N,M,chunks", COLS_CASES)
+def test_cols_ref_matches_pallas(a, N, M, chunks):
+    """The bounds of tests/test_pallas.py:125-145: V rtol 3e-5 on live
+    cells, Srel error scaled by max(1, |s|) below 1e-4, V exactly 0 and
+    Srel -inf above the diagonal.  The port's layout is (M, N)."""
+    vt_p, sr_p, _ = sp.fill_table_cols(a, N, M, chunks=chunks,
+                                       interpret=True)
+    pv = np.asarray(sp.unfold_cols(vt_p, N, chunks))
+    ps = np.asarray(sp.unfold_cols(sr_p, N, chunks))
+    tv, ts = sc.fill_table_cols(_a(a, torch.float32), N, M)
+    assert tv.shape == ts.shape == (M, N)
+    tv, ts = tv.T.double().numpy(), ts.T.double().numpy()
+    live = np.isfinite(tv) & (tv != 0)
+    np.testing.assert_allclose(pv[live], tv[live], rtol=3e-5)
+    fin = np.isfinite(ts)
+    err = np.abs(ps[fin] - ts[fin]) / np.maximum(1.0, np.abs(ts[fin]))
+    assert np.max(err) < 1e-4
+    above = ~fin
+    np.testing.assert_array_equal(tv[above], 0.0)
+    np.testing.assert_array_equal(pv[above], 0.0)
+    assert np.all(np.isneginf(ps[above]))
+
+
+@pytest.mark.parametrize("a,N,M", EDGE_CASES)
+def test_plain_fills_are_fill_rows(a, N, M):
+    """Both plain versions are fill_rows at one discount in their kernel's
+    layout, held to the JAX fill_rows at rtol 1e-12 in f64, with the
+    sentinels V(., 1) = +inf, V = 0 and Srel = -inf above the diagonal,
+    and no NaN."""
+    v, s = sc.fill_table(_a(a), N, M)
+    vc, scol = sc.fill_table_cols(_a(a), N, M)
+    assert torch.equal(vc, v.T) and torch.equal(scol, s.T)
+    assert vc.is_contiguous() and scol.is_contiguous()
+    jv, js, _ = (np.asarray(x) for x in jst.fill_rows(a, N, M,
+                                                     dtype=jnp.float64))
+    np.testing.assert_array_equal(np.isneginf(s.numpy()), np.isneginf(js))
+    np.testing.assert_array_equal(v.numpy() == 0, jv == 0)
+    assert np.all(np.isposinf(v.numpy()[:, 0]))
+    assert not (torch.isnan(v).any() or torch.isnan(s).any())
+    fin = np.isfinite(js)
+    np.testing.assert_allclose(s.numpy()[fin], js[fin], rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(v.numpy(), jv, rtol=1e-12)
+
+
+def test_nosrel_paths():
+    for fill in (sc.fill_table, sc.fill_table_cols):
+        v, s = fill(_a(0.3, torch.float32), 64, 16, with_srel=False)
+        assert s is None
+        assert torch.equal(v, fill(_a(0.3, torch.float32), 64, 16)[0])
+
+
+def test_cuda_launchers_reject_cpu_tensors():
+    before = dict(sc.LAUNCHES)
+    for fn in (sc.fill_table_cuda, sc.fill_table_cols_cuda):
+        with pytest.raises(ValueError, match="not on a CUDA device"):
+            fn(_a(0.5), 16, 8)
+    sc.fill_table(_a(0.5), 16, 8)
+    sc.fill_table_cols(_a(0.5), 16, 8)
+    assert sc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("device,n,m,build_v,route", [
+    ("cpu", 100, 10, True, "fill_rows"),
+    ("cpu", 1 << 20, 1024, True, "fill_rows"),
+    ("cuda", 100, 10, True, "fill_table"),
+    ("cuda", (1 << 16) - 1, 1024, True, "fill_table"),
+    ("cuda", 1 << 16, 1024, True, "fill_table_cols"),
+    ("cuda", (1 << 24) - 1, 8, True, "fill_table_cols"),
+    ("cuda", 1 << 24, 8, True, "fill_table"),
+    ("cuda", 1 << 16, 64, False, "fill_table"),
+    ("cuda", 20000, 14337, True, "fill_table_cols"),
+    ("cuda", 20000, 14337, False, "fill_table_cols"),
+    ("cuda", 20000, 14336, True, "fill_table"),
+    ("cuda:1", 1000, 200, True, "fill_table"),
+])
+def test_fill_route(device, n, m, build_v, route):
+    """On a CUDA device every fill is a kernel: K3 from n = 2^16 (below
+    2^24) or past K2's shared row, K2 otherwise; the plain fill only on the
+    CPU."""
+    assert tst.fill_route(device, n, m, build_v) == route
+
+
+def test_sources_named_and_flags():
+    """Each kernel builds from its own source in the package, for sm_90a,
+    into a .so named by the kernel and a hash of source and flags."""
+    for name, src in sc.SOURCES.items():
+        assert src.is_file() and src.parent.name == "csrc"
+        assert f"extern \"C\" int stb_{name}_f32" in src.read_text()
+        assert sc._target(name).name.startswith(f"{name}_")
+    assert "stirling_pallas.py:_kernel_folded" in (
+        sc.SOURCES["fill_table"].read_text())
+    assert "stirling_pallas.py:_kernel_cols" in (
+        sc.SOURCES["fill_table_cols"].read_text())
+    assert len({sc._target(n) for n in sc.KERNELS}) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,v_rtol,s_atol", [
+    (torch.float32, 2e-5, 1e-4), (torch.float64, 1e-12, 1e-10)])
+@pytest.mark.parametrize("a,N,M", [(A1, N1, M1)] + EDGE_CASES)
+def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
+    v64, s64 = sc.fill_table_ref(_a(a), N, M)
+    at = _a(a, dtype, cuda_device)
+    for fill, t in ((sc.fill_table_cuda, False),
+                    (sc.fill_table_cols_cuda, True)):
+        v, s = fill(at, N, M)
+        torch.cuda.synchronize()
+        v, s = v.double().cpu(), s.double().cpu()
+        if t:
+            v, s = v.T, s.T
+        live = torch.isfinite(v64) & (v64 > 0)
+        torch.testing.assert_close(v[live], v64[live], rtol=v_rtol, atol=0)
+        assert bool((v[torch.isfinite(v64) & (v64 == 0)] == 0).all())
+        assert bool(torch.isposinf(v[:, 0]).all())
+        fin = torch.isfinite(s64)
+        # scaled by max(1, |Srel|): one f32 rounding of |Srel| ~ 1e4 at
+        # m ~ 1500 is 5e-4 absolute
+        err = (s[fin] - s64[fin]).abs() / s64[fin].abs().clamp(min=1.0)
+        assert err.max().item() < s_atol
+        assert torch.equal(torch.isneginf(s), torch.isneginf(s64))
+        assert not bool(torch.isnan(v).any() or torch.isnan(s).any())
+
+
+@pytest.mark.cuda
+def test_kernels_reject_unsupported(cuda_device):
+    with pytest.raises(TypeError):
+        sc.fill_table(torch.tensor(0.5, dtype=torch.float16,
+                                   device=cuda_device), 8, 8)
+    with pytest.raises(ValueError):
+        sc.fill_table(torch.tensor(0.5, device=cuda_device), 20000, 14337)
+    with pytest.raises(ValueError):
+        sc.fill_table_cols(torch.tensor(0.5, device=cuda_device), 1 << 24, 8)

@@ -45,8 +45,9 @@ def test_every_module_imports_without_jax():
     assert "imported" in res.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", *sorted((ROOT / "cli").glob("*_torch.py"))],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -63,9 +64,9 @@ def test_no_jax_or_reference_import(path):
 def test_cuda_entry_rejects_cpu_tensor():
     with pytest.raises(ValueError, match="not on a CUDA device"):
         sc.fill_grid_cuda(torch.tensor([0.1, 0.5]), 16, 8)
-    n = sc.LAUNCHES
+    n = sc.LAUNCHES["fill_grid"]
     sc.fill_grid(torch.tensor([0.1, 0.5]), 16, 8)     # CPU: the plain fill
-    assert sc.LAUNCHES == n
+    assert sc.LAUNCHES["fill_grid"] == n
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
@@ -128,13 +129,14 @@ def test_yaps_copy_equal():
 
 
 def test_build_flags_and_source():
-    """The kernel builds from the package's own source for sm_90a, without
-    fast math, into the ignored _build directory."""
-    assert sc.SOURCE.is_file() and sc.SOURCE.parent.parent == PKG
+    """Every kernel builds from the package's own source for sm_90a,
+    without fast math, into the ignored _build directory."""
+    assert sorted(sc.SOURCES) == sorted(sc.KERNELS) == sorted(sc.LAUNCHES)
+    for src in sc.SOURCES.values():
+        assert src.is_file() and src.parent.parent == PKG
+        assert "stirling_pallas.py:_kernel" in src.read_text()
     assert "arch=compute_90a,code=sm_90a" in sc.NVCC_FLAGS
     assert not any("fast_math" in f for f in sc.NVCC_FLAGS)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "libstb_tpu_torch/_build/" in ignored
-    src = sc.SOURCE.read_text()
-    assert "stirling_pallas.py:_kernel" in src
     assert os.path.basename(sc._BUILD_DIR) == "_build"
