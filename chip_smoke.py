@@ -6,32 +6,39 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
-  1. build the hand-written kernels K1-K3 (csrc/*.cu) with nvcc, one
-     process per source, all at once;
-  2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) in
-     f32 and f64, (b) at the grid-fill benchmark shape (64 x 16384 x 1024,
-     f32) on 8 of the discounts against the f64 plain fill, (c) the
-     kernel's and the plain f32 fill's times (CUDA events, median of
-     runs) and the kernel's bandwidth as a share of a copy roofline
-     measured on the card;
+  1. build the hand-written kernels K1-K3 (csrc/*.cu, K1 and K2 sharing
+     csrc/row_walk.cuh) with nvcc, one process per source, all at once;
+  2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) and
+     at the row walk's tile edges (G = 1 and 64) in f32 and f64, (b) at
+     the grid-fill benchmark shape (64 x 16384 x 1024, f32) on 8 of the
+     discounts against the f64 plain fill, (c) the kernel's and the plain
+     f32 fill's times (CUDA events, median of runs), the kernel's bound
+     and its share of it, and its share of a copy roofline measured on the
+     card;
   3. the main path: make_grid(512, 128, g=64) + run_gibbs with 1024
      chains x 500 iterations on crp_generate(0, 4, 20, 100) data, with
      the kernel's launch count over that run;
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
-     for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands;
+     for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands,
+     with the kernels' launch counts over the gate;
   5. K2 (csrc/fill_table.cu) against its plain version: (a) at (0.4321,
-     200, 64) and edge shapes in f32 and f64, (b) at (16384, 1024) in f32
-     against the f64 plain fill, (c) K2's and the plain f32 fill's times;
+     200, 64), edge shapes and tile edges in f32 and f64, (b) at (16384,
+     1024) in f32 against the f64 plain fill, (c) K2's and the plain f32
+     fill's times, K2's bound, its share of it and of the copy roofline;
   6. K3 (csrc/fill_table_cols.cu) against its plain version: (a) the
-     tests/test_pallas.py cases and edge shapes, (b) at (2^20, 1024) in
+     tests/test_pallas.py cases, edge shapes and narrow tables on K3's
+     side of the route (m = 1, 2, 17), (b) at (2^20, 1024) in
      f32 against K1 at G=1 in f64, (c) K3's and the plain f32 fill's times
      at (2^16, 1024), and K3's at (2^20, 1024) as a share of the copy
      roofline;
   7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K2),
-     ensure past 2^16 rows (K3), remake, and cli/list_torch.py, held to
-     plain-f64 tables built on the card, with each kernel's launch count
-     over that run and no plain fill on it.
+     ensure past the K2/K3 cutoff (K3), remake, and cli/list_torch.py,
+     held to plain-f64 tables built on the card, with each kernel's launch
+     count over that run and no plain fill on it;
+  8. the K2/K3 crossover: both kernels at six (n, m) shapes (CUDA events,
+     median of 7), and stirling.fill_route's choice at each, which must be
+     within 1.1x of the faster.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -50,6 +57,29 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GATE_REF = os.path.join(ROOT, "tests", "data", "torch_gate_ref.json")
 BENCH_SHAPE = (64, 1 << 14, 1024)      # bench.py:77, the headline grid fill
+# The least time for a fill: its tables written once (2 cells' bytes a
+# cell) at the H100 SXM's 3.35 TB/s, or its f64 work at 34 TFLOP/s (f64
+# outside the tensor cores; NVIDIA's data sheet), whichever is larger.  A
+# cell of the function is ~12 flops plus two divides and one log, each of
+# those counted as 20, whichever kernel computes it (K3's scans are the
+# cost of its algorithm, not of the function).
+HBM_BPS = 3.35e12
+F64_FLOPS = 34e12
+FILL_FLOPS = 12 + 3 * 20
+# the row walk's tile edges (32 columns a tile, the halo read 32 rows at a
+# time): m = 1, m < 32, m = 32, 33, 65; n = 1, 2, n < 32, n = 33
+TILE_EDGES = [(20, 1), (33, 1), (20, 17), (33, 32), (20, 33), (33, 33),
+              (33, 65), (1, 65), (2, 33), (100, 65)]
+CROSSOVER = [(1000, 200), (1024, 1024), (4096, 1024), (16384, 1024),
+             (65535, 1024), (16384, 64)]
+
+
+def bound(cells, itemsize):
+    """(ms, "bytes" or "operations"): the least time of a fill of
+    ``cells`` cells of ``itemsize`` bytes, V and Srel."""
+    b_ms = 2 * itemsize * cells / HBM_BPS * 1e3
+    o_ms = FILL_FLOPS * cells / F64_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def phase(name):
@@ -132,12 +162,18 @@ def scaled_err(s, s64):
 # count, n not a multiple of a warp's 32-row group
 EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
               (0.2, 1, 1), (0.55, 3000, 1500)]
+# narrow tables that fill_route sends to K3 (n >= 17 m): m = 1, 2, 17
+NARROW_CASES = [(0.4321, 20, 1), (0.4321, 33, 1), (0.0, 700, 1),
+                (0.3, 40, 2), (0.9, 100, 2), (0.5, 300, 17),
+                (0.0, 1000, 17)]
 
 
-def phase5_k2(dev, sc, stirling, card):
+def phase5_k2(dev, sc, stirling, card, roof):
     """K2 against its plain version; returns its kernels-line fields."""
-    t0 = phase("5a K2 vs plain at (0.4321, 200, 64) and edge shapes")
-    for a, n, m in [(0.4321, 200, 64)] + EDGE_CASES:
+    t0 = phase("5a K2 vs plain at (0.4321, 200, 64), edge shapes and tile "
+               "edges")
+    for a, n, m in [(0.4321, 200, 64)] + EDGE_CASES + [
+            (0.4321, n, m) for n, m in TILE_EDGES]:
         v64, s64 = sc.fill_table_ref(torch.tensor(a, dtype=torch.float64,
                                                   device=dev), n, m)
         for dt, v_tol, s_tol in ((torch.float32, 2e-5, 1e-4),
@@ -186,19 +222,25 @@ def phase5_k2(dev, sc, stirling, card):
     t0 = phase("5c K2 times at (16384, 1024) (CUDA events)")
     k_ms = cuda_ms(lambda: sc.fill_table_cuda(a32, N, M), 5)
     p_ms = cuda_ms(lambda: sc.fill_table_ref(a32, N, M), 1)
-    print(f"   K2 {k_ms:.4f} ms (median of 5); plain f32 fill {p_ms:.1f} ms "
-          f"(one run) [{card}]")
+    b_ms, b_by = bound(N * M, 4)
+    k_bw = 2 * 4 * N * M / (k_ms * 1e-3)
+    print(f"   K2 {k_ms:.4f} ms (median of 5) = {100 * b_ms / k_ms:.2f}% of "
+          f"its bound {b_ms:.4f} ms ({b_by}) = {100 * k_bw / roof:.2f}% of "
+          f"the copy roofline; plain f32 fill {p_ms:.1f} ms (one run) "
+          f"[{card}]")
     done(t0)
-    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def phase6_k3(dev, sc, stirling, card, roof):
     """K3 against its plain version and K1; returns its kernels-line
     fields."""
-    t0 = phase("6a K3 vs plain: test_pallas cases and edge shapes")
+    t0 = phase("6a K3 vs plain: test_pallas cases, edge shapes, narrow "
+               "tables")
     cases = [(0.4321, 200, 64), (0.55, 512, 48), (0.05, 384, 32),
              (0.0, 256, 24)]
-    for a, n, m in cases + EDGE_CASES:
+    for a, n, m in cases + EDGE_CASES + NARROW_CASES:
         v64, s64 = sc.fill_table_ref(torch.tensor(a, dtype=torch.float64,
                                                   device=dev), n, m)
         for dt in (torch.float32, torch.float64):
@@ -245,12 +287,18 @@ def phase6_k3(dev, sc, stirling, card, roof):
     p16 = cuda_ms(lambda: sc.fill_table_cols_ref(a32, n16, M), 1)
     k20 = cuda_ms(lambda: sc.fill_table_cols_cuda(a32, N, M), 3)
     bw = 2 * 4 * N * M / (k20 * 1e-3)
-    print(f"   (2^16, 1024): K3 {k16:.4f} ms (median of 5), plain f32 fill "
-          f"{p16:.1f} ms (one run); (2^20, 1024): K3 {k20:.4f} ms (median "
-          f"of 3) = {bw / 1e9:.1f} GB/s = {100 * bw / roof:.1f}% of the "
-          f"copy roofline [{card}]")
+    b16, b16_by = bound(n16 * M, 4)
+    b20, b20_by = bound(N * M, 4)
+    print(f"   (2^16, 1024): K3 {k16:.4f} ms (median of 5) = "
+          f"{100 * b16 / k16:.2f}% of its bound {b16:.4f} ms ({b16_by}), "
+          f"plain f32 fill {p16:.1f} ms (one run); (2^20, 1024): K3 "
+          f"{k20:.4f} ms (median of 3) = {bw / 1e9:.1f} GB/s = "
+          f"{100 * bw / roof:.1f}% of the copy roofline = "
+          f"{100 * b20 / k20:.2f}% of its bound {b20:.4f} ms ({b20_by}) "
+          f"[{card}]")
     done(t0)
-    return {"max_abs_err": max_abs, "ms": k16, "plain_ms": p16}
+    return {"max_abs_err": max_abs, "ms": k16, "plain_ms": p16,
+            "bound_ms": b16, "bound_by": b16_by, "library_ms": None}
 
 
 def plain_table(stirling, t, n, m, a, dev):
@@ -387,6 +435,23 @@ def phase7_table(dev, sc, stirling, card):
     return launches
 
 
+def phase8_crossover(dev, sc, stirling, card):
+    """K2 against K3 at the CROSSOVER shapes; fill_route must pick one
+    within 1.1x of the faster."""
+    t0 = phase("8 K2 vs K3 crossover (CUDA events, median of 7, f32)")
+    a32 = torch.tensor(0.5, device=dev)
+    for n, m in CROSSOVER:
+        k2 = cuda_ms(lambda: sc.fill_table_cuda(a32, n, m), 7)
+        k3 = cuda_ms(lambda: sc.fill_table_cols_cuda(a32, n, m), 7)
+        route = stirling.fill_route(dev, n, m)
+        routed = k2 if route == "fill_table" else k3
+        print(f"   ({n}, {m}): K2 {k2:.4f} ms, K3 {k3:.4f} ms; fill_route "
+              f"-> {route} [{card}]")
+        check(routed <= 1.1 * min(k2, k3),
+              f"fill_route({n}, {m}) picks {route} at {routed:.4f} ms")
+    done(t0)
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -413,7 +478,7 @@ def main():
         sc.load(name)
     done(t0, f"({', '.join(p.name for p in sc.SOURCES.values())} -> sm_90a)")
 
-    t0 = phase("2a K1 vs plain at (8, 160, 48)")
+    t0 = phase("2a K1 vs plain at (8, 160, 48) and tile edges")
     avec = torch.linspace(0.0, 0.9, 8, dtype=torch.float64, device=dev)
     v64, s64 = sc.fill_grid_ref(avec, 160, 48)
     v, s = sc.fill_grid_cuda(avec.float(), 160, 48)
@@ -432,8 +497,20 @@ def main():
           f"f64 K1: V rel {vd_rel:.3g}, |dSrel| {sd_abs:.3g}")
     v_n, s_n = sc.fill_grid_cuda(avec.float(), 160, 48, with_srel=False)
     check(s_n is None and torch.equal(v_n, v), "with_srel=False path")
+    for n, m in TILE_EDGES:
+        for G in (1, 64):
+            av = torch.linspace(0.0, 0.9, G, dtype=torch.float64, device=dev)
+            e64 = sc.fill_grid_ref(av, n, m)
+            for dt, v_tol, s_tol in ((torch.float32, 2e-5, 1e-4),
+                                     (torch.float64, 1e-12, 1e-10)):
+                e_v, e_s, _ = fill_errors(*sc.fill_grid_cuda(av.to(dt), n, m),
+                                          *e64)
+                check(e_v < v_tol and e_s < s_tol,
+                      f"K1 {dt} G={G} ({n}, {m}): V rel {e_v:.3g}, |dSrel| "
+                      f"{e_s:.3g}")
     done(t0, f"f32 V rel {v_rel:.3g} |dSrel| {s_abs:.3g}; "
-             f"f64 V rel {vd_rel:.3g} |dSrel| {sd_abs:.3g}")
+             f"f64 V rel {vd_rel:.3g} |dSrel| {sd_abs:.3g}; "
+             f"{len(TILE_EDGES)} tile edges x G = 1, 64 x f32, f64 in bounds")
 
     t0 = phase(f"2b K1 vs f64 plain at {BENCH_SHAPE}")
     G, N, M = BENCH_SHAPE
@@ -463,10 +540,12 @@ def main():
     k_bw = nbytes / (k_ms * 1e-3)
     del x, y
     torch.cuda.empty_cache()
+    k1_bound, k1_by = bound(G * N * M, 4)
     print(f"   K1 {k_ms:.4f} ms = {k_bw / 1e9:.1f} GB/s = "
           f"{100 * k_bw / roof:.1f}% of the copy roofline "
-          f"({roof / 1e9:.1f} GB/s r+w); plain f32 fill {p_ms:.1f} ms "
-          f"[{card}]")
+          f"({roof / 1e9:.1f} GB/s r+w) = {100 * k1_bound / k_ms:.2f}% of "
+          f"its bound {k1_bound:.4f} ms ({k1_by}); plain f32 fill "
+          f"{p_ms:.1f} ms [{card}]")
     done(t0)
 
     t0 = phase("3 main path: make_grid + run_gibbs (1024 chains x 500)")
@@ -503,6 +582,8 @@ def main():
         ref = json.load(f)
     cfg = driver.GibbsConfig(**ref["config"])
     ok = True
+    for name in sc.LAUNCHES:
+        sc.LAUNCHES[name] = 0
     for seed, r in ref["seeds"].items():
         data = pyp.crp_generate(int(seed), *ref["data_args"])
         check(np.array_equal(data.n, np.asarray(r["n"])),
@@ -528,11 +609,15 @@ def main():
                   f"ours={np.round(om, 4)} band={np.round(band, 4)} -> "
                   f"{'OK' if good else 'MISMATCH'}")
     check(ok, "gate: a posterior moment is outside its band")
+    gate_launches = dict(sc.LAUNCHES)
+    print(f"   launches in the gate: {gate_launches}")
+    check(gate_launches["fill_grid"] >= 1, "the gate did not launch K1")
     done(t0)
 
-    k2 = phase5_k2(dev, sc, stirling, card)
+    k2 = phase5_k2(dev, sc, stirling, card, roof)
     k3 = phase6_k3(dev, sc, stirling, card, roof)
     table_launches = phase7_table(dev, sc, stirling, card)
+    phase8_crossover(dev, sc, stirling, card)
 
     print(json.dumps({"kernels": [{
         "name": "fill_grid",
@@ -543,6 +628,9 @@ def main():
         "max_abs_err": max_abs,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
     }, {
         "name": "fill_table",
         "route": "cuda",

@@ -386,25 +386,31 @@ class StirlingTable:
 # Construction / growth (S_make / S_remake / S_extend semantics)
 # ---------------------------------------------------------------------------
 
-# On a CUDA device, tables this long take the column-scan kernel K3 (up
-# to stirling_cuda.COLS_MAX_N); the row-walk kernel K2 takes the rest.
-COLS_MIN_N = 1 << 16
+# On a CUDA device a table takes the column-scan kernel K3 once it has at
+# least COLS_MIN_RATIO rows per column (up to stirling_cuda.COLS_MAX_N),
+# the row walk K2 below that.  The ratio is the crossover measured on an
+# H100 (chip_smoke.py phase 8): K2 costs about one row step (~0.25 us) per
+# row plus one per column (its wavefront), K3 about 18 row steps per column
+# below 2^16 rows, so the two meet near n + m = 18 m (K2 ahead at (16384,
+# 1024), (4096, 1024) and (1000, 200); K3 at (65535, 1024) and (16384,
+# 64)).
+COLS_MIN_RATIO = 17
 
 
 def fill_route(device, n: int, m: int, build_v: bool = True) -> str:
     """Which fill ``make`` runs for an (n, m) table on ``device``:
     "fill_rows" (the plain fill) on the CPU; on a CUDA device the kernel
-    "fill_table_cols" (K3) for COLS_MIN_N <= n < 2^24 when V is
-    built, as the JAX package routes, and for any table wider than K2's
-    shared row holds; otherwise "fill_table" (K2).  The plain fill never
-    runs on a CUDA device."""
+    "fill_table_cols" (K3) for COLS_MIN_RATIO * m <= n < 2^24 when V is
+    built, and for any table wider than K2 takes; otherwise "fill_table"
+    (K2).  The plain fill never runs on a CUDA device."""
     from ..ops import stirling_cuda
 
     device = torch.device(device)
     if device.type == "cpu":
         return "fill_rows"
-    if n < stirling_cuda.COLS_MAX_N and (m > stirling_cuda.TABLE_MAX_M
-                           or (build_v and n >= COLS_MIN_N)):
+    if n < stirling_cuda.COLS_MAX_N and (
+            m > stirling_cuda.TABLE_MAX_M
+            or (build_v and n >= COLS_MIN_RATIO * m)):
         return "fill_table_cols"
     return "fill_table"
 

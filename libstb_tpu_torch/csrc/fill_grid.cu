@@ -1,168 +1,32 @@
-// Discount-grid Stirling table fill (V ratios + Srel) for Hopper (sm_90a).
+// Discount-grid Stirling table fill (V ratios + Srel) for Hopper (sm_90a):
+// kernel K1.
 //
 // Replaces the TPU kernel libstb_tpu/ops/stirling_pallas.py:_kernel (the
-// body of fill_grid).  For every discount a_g of the grid it walks
-// n = 1..n_max in order and writes one row of both tables per step:
+// body of fill_grid): for every discount a_g of the grid, the V ratio
+// table and Srel by the difference form of the increment,
+// log U(n-1, m) - log(n-1 - a), with S1 Kahan-summed in the kernel to set
+// the fresh diagonal.  Layout (G, n_max, m_max) row-major.
 //
-//   V(n, m)    = (1 + (n-1 - m a) V(n-1, m)) / (1/V(n-1, m-1) + n-1 - (m-1) a)
-//   Srel(n, m) = Srel(n-1, m) + log U(n-1, m) - log(n-1 - a),
-//   U(n, m)    = (n - m a) + 1/V(n, m),
-//
-// with the Srel increments summed as a Kahan (sum, comp) pair, S1 Kahan-
-// summed in the block to set the fresh diagonal Srel(n, n) = -S1(n), and
-// the sentinels V(., 1) = +inf, 1/V = +inf above the diagonal, Srel = -inf
-// above the diagonal.  Row i of the output holds n = i+1, column j holds
-// m = j+1, layout (G, n_max, m_max) row-major.
-//
-// Layout of work: one thread block per discount g; the threads cover the
-// m columns (thread t owns columns t, t+blockDim, ..., so a warp writes 32
-// consecutive cells) and keep each column's V, 1/V and Kahan pair in
-// registers across the sequential n loop -- the analog of the TPU kernel's
-// VMEM carry.  The only cross-column dependence is the left neighbour's
-// 1/V(n-1, m-1); it goes through a double-buffered shared-memory row, so
-// one __syncthreads() per row orders the write of row n against the reads
-// of row n+1.
-//
-// Precision: the recurrence is carried in f64 whatever the table type,
-// and each cell is rounded once to T on its store.  Evaluated in f32 (as
-// on the TPU, which has no f64), V(n, m) at small m drifts linearly in n:
-// measured on an H100 at 64 x 16384 x 1024, f32 arithmetic -- this kernel
-// carried in f32 and the plain f32 fill alike -- reaches a relative error
-// of 4.2e-4 at n = 16384 against the f64 fill.  Carried in f64 the f32
-// tables are the f64 fill rounded once.
-//
-// IEEE arithmetic replaces the TPU's clamped approximate reciprocal: true
-// division (nvcc's default -prec-div=true) gives 1/inf = 0 and exact zeros
-// above the diagonal; the cells where the update would form inf - inf
-// (the diagonal and above) are assigned, never computed, so no NaN is
-// written.  Build without -use_fast_math: it would make '/' and log
-// approximate and flush denormals.
-//
-// Bound on this card: the fill reads nothing and writes 2 * sizeof(T)
-// bytes per cell, so its floor is the device write bandwidth; each cell
-// also costs two f64 divides and one f64 log, issued at the H100's f64
-// rate.  One block per discount means a G=64 grid occupies at most 64 of
-// the H100's 132 SMs (filling the rest, by tiling m across blocks with a
-// halo column, is later work).
-#include <cuda_runtime.h>
-#include <math.h>
+// The walk itself is row_walk.cuh: each table's columns are cut into tiles
+// of 32, one warp walks a tile over n with its state in registers and the
+// left neighbour by shuffle, tiles hand their edge 1/V to the right through
+// a halo column (a wavefront), and warps claim tiles by ticket.  At the
+// benchmark shape (64 x 16384 x 1024) that is 2048 tiles spread over all
+// 132 SMs; see row_walk.cuh for what bounds the walk.
+#include "row_walk.cuh"
 
-namespace {
-
-template <typename T, int K>
-__global__ void __launch_bounds__(1024)
-fill_grid_kernel(const T* __restrict__ avec, T* __restrict__ vout,
-                 T* __restrict__ sout, int n_max, int m_max, int with_srel) {
-  using A = double;                                  // carried precision
-  extern __shared__ unsigned char smem_raw[];
-  A* rbuf = reinterpret_cast<A*>(smem_raw);          // [2][m_max] of 1/V
-  const A inf = static_cast<A>(INFINITY);
-  const A tiny = 1e-30;
-  const A a = static_cast<A>(avec[blockIdx.x]);
-  const size_t base = static_cast<size_t>(blockIdx.x) * n_max * m_max;
-
-  A v[K], r[K], sacc[K], scomp[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int c = threadIdx.x + k * blockDim.x;
-    // base row n = 1: V = [inf, 0, ...], 1/V = [0, inf, ...],
-    // Srel = [0, -inf, ...]
-    v[k] = c == 0 ? inf : A(0);
-    r[k] = c == 0 ? A(0) : inf;
-    sacc[k] = c == 0 ? A(0) : -inf;
-    scomp[k] = A(0);
-    if (c < m_max) {
-      vout[base + c] = static_cast<T>(v[k]);
-      if (with_srel) sout[base + c] = static_cast<T>(sacc[k]);
-      rbuf[c] = r[k];
-    }
-  }
-  A s1 = A(0), s1c = A(0);                           // Kahan pair for S1
-  __syncthreads();
-
-  for (int i = 1; i < n_max; ++i) {                  // row i holds n = i+1
-    const A* rprev = rbuf + ((i - 1) & 1) * m_max;
-    A* rnext = rbuf + (i & 1) * m_max;
-    const A nm1 = static_cast<A>(i);                 // n - 1
-    const size_t row = base + static_cast<size_t>(i) * m_max;
-    A d1 = A(0);
-    if (with_srel) {
-      d1 = log(fmax(nm1 - a, tiny));                 // S1(n) - S1(n-1)
-      const A y1 = d1 - s1c;
-      const A t1 = s1 + y1;
-      s1c = (t1 - s1) - y1;
-      s1 = t1;
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = threadIdx.x + k * blockDim.x;
-      if (c >= m_max) continue;
-      const A am = static_cast<A>(c + 1) * a;        // m a
-      const A am1 = static_cast<A>(c) * a;           // (m-1) a
-      const A rleft = c == 0 ? A(0) : rprev[c - 1];  // 1/V(n-1, m-1)
-      const A numer = A(1) + (nm1 - am) * v[k];
-      const A denom = rleft + (nm1 - am1);
-      const A vn = numer / denom;
-      const A rn = denom / numer;
-      if (with_srel) {
-        if (c < i) {                                 // 2 <= m <= n-1: update
-          const A u = (nm1 - am) + r[k];             // U(n-1, m)
-          const A d = log(fmax(u, tiny)) - d1;
-          const A y = d - scomp[k];
-          const A t = sacc[k] + y;
-          scomp[k] = (t - sacc[k]) - y;
-          sacc[k] = t;
-        } else {                                     // fresh diagonal / above
-          sacc[k] = c == i ? -s1 : -inf;
-          scomp[k] = A(0);
-        }
-        sout[row + c] = static_cast<T>(sacc[k]);
-      }
-      v[k] = vn;
-      r[k] = rn;
-      vout[row + c] = static_cast<T>(vn);
-      rnext[c] = rn;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int K>
-int launch_k(const T* avec, T* v, T* s, int g, int n, int m, int with_srel,
-             cudaStream_t stream) {
-  int threads = (m + K - 1) / K;
-  threads = ((threads + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(m) * sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(
-      fill_grid_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fill_grid_kernel<T, K><<<g, threads, smem, stream>>>(avec, v, s, n, m,
-                                                       with_srel);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Columns per thread: the smallest K with ceil(m / K) <= 1024 threads.
-template <typename T>
-int launch(const T* avec, T* v, T* s, int g, int n, int m, int with_srel,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 1024) return launch_k<T, 1>(avec, v, s, g, n, m, with_srel, st);
-  if (m <= 2048) return launch_k<T, 2>(avec, v, s, g, n, m, with_srel, st);
-  if (m <= 4096) return launch_k<T, 4>(avec, v, s, g, n, m, with_srel, st);
-  if (m <= 8192) return launch_k<T, 8>(avec, v, s, g, n, m, with_srel, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
-
-extern "C" int stb_fill_grid_f32(const float* avec, float* v, float* s, int g,
-                                 int n, int m, int with_srel, void* stream) {
-  return launch<float>(avec, v, s, g, n, m, with_srel, stream);
+extern "C" int stb_fill_grid_f32(const float* avec, float* v, float* s,
+                                 double* halo, int* ticket, int g, int n,
+                                 int m, int with_srel, int tiles, int blocks,
+                                 void* stream) {
+  return row_walk::launch<float, false>(avec, v, s, halo, ticket, g, n, m,
+                                        with_srel, tiles, blocks, stream);
 }
 
 extern "C" int stb_fill_grid_f64(const double* avec, double* v, double* s,
-                                 int g, int n, int m, int with_srel,
+                                 double* halo, int* ticket, int g, int n,
+                                 int m, int with_srel, int tiles, int blocks,
                                  void* stream) {
-  return launch<double>(avec, v, s, g, n, m, with_srel, stream);
+  return row_walk::launch<double, false>(avec, v, s, halo, ticket, g, n, m,
+                                         with_srel, tiles, blocks, stream);
 }

@@ -8,6 +8,12 @@ libstb_tpu/ops/stirling_pallas.py:
   discounts, (G, n, m) row-major;
 * K2 ``fill_table`` (csrc/fill_table.cu): one discount by the row walk,
   (n, m) row-major;
+
+  K1 and K2 share the row walk of csrc/row_walk.cuh: each table's columns
+  are cut into tiles of ``TILE_W``, one warp walks a tile over n, and the
+  tile's edge 1/V reaches the tile to its right through a halo column.
+  ``tile_plan`` sets the geometry (tiles, one-warp blocks) and the ticket
+  order the kernel claims tiles in;
 * K3 ``fill_table_cols`` (csrc/fill_table_cols.cu): one discount by a
   parallel scan over n, one column at a time, written column-major
   (m, n).
@@ -21,7 +27,8 @@ a plain version.
 Each kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C interface on first use, from the source in this package only, into
 ``libstb_tpu_torch/_build/`` keyed by a hash of the source and flags, and
-bound with ctypes; ``build_all`` starts one nvcc per source, all at once.
+bound with ctypes; the hash covers every header the source includes, and
+``build_all`` starts one nvcc per source, all at once.
 ``LAUNCHES[name]`` counts each kernel's launches, so a run can show that
 its fills went through the kernels.
 """
@@ -30,15 +37,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from ..core import stirling
 
-__all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref",
+__all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref", "tile_plan",
            "fill_table", "fill_table_cuda", "fill_table_ref",
            "fill_table_cols", "fill_table_cols_cuda", "fill_table_cols_ref",
            "build_all", "load", "KERNELS", "LAUNCHES"]
@@ -51,12 +60,10 @@ SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-# K1 gives each thread at most 8 columns (csrc/fill_grid.cu:launch); its
-# double-buffered f64 row of 1/V then takes at most 128 KB of the 227 KB
-# of shared memory a block may use
+# The widest tables K1 and K2 take: the limits of their first designs
+# (a shared row of f64 1/V per block), which the tiled walk no longer
+# needs but which are all the card has been tested at
 _MAX_M = 8192
-# K2 keeps the same double-buffered f64 row with up to 16 columns a
-# thread: 14336 columns take 224 KB (csrc/fill_table.cu:launch)
 TABLE_MAX_M = 14336
 _MAX_N_F32 = 1 << 24                  # the TPU kernels' f32 row-index bound
 # K3 takes n < 2^24 rows, the bound of the JAX kernel it replaces
@@ -65,12 +72,18 @@ COLS_MAX_N = 1 << 24
 # per-block maps (csrc/fill_table_cols.cu: kMaxBlocks)
 _COLS_MAX_BLOCKS = 1024
 
+# K1/K2 geometry (csrc/row_walk.cuh): a tile is one warp's 32 columns (and
+# reads its left neighbour's halo 32 rows at a time); a block is one warp,
+# and an SM is given at most 16 of them, four to each of its schedulers
+TILE_W = 32
+_BLOCKS_PER_SM = 16
+
 _libs: dict = {}
 _ARGTYPES = {
-    # (a or avec, V, Srel, [scratch,] ints..., stream)
-    "fill_grid": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    # (a or avec, V, Srel, scratch..., ints..., stream)
+    "fill_grid": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "fill_table": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    "fill_table": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "fill_table_cols": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
@@ -89,8 +102,22 @@ def _nvcc() -> str:
     raise RuntimeError("stirling_cuda: nvcc not found (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path``'s bytes followed by those of every file it includes with
+    quotes, recursively, each once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    src = path.read_bytes()
+    return src + b"".join(_source_bytes(path.parent / inc.decode(), seen)
+                          for inc in _INCLUDE.findall(src))
+
+
 def _target(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
+    src = _source_bytes(SOURCES[name], set())
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"{name}_{tag}.so"
 
@@ -158,6 +185,64 @@ def _launch(name: str, a: torch.Tensor, *args):
     LAUNCHES[name] += 1
 
 
+# -- K1/K2 geometry: tiles of columns, a halo column between them -----------
+
+class TilePlan(NamedTuple):
+    """The launch geometry of K1/K2 for G tables of (n, m): ``tiles``
+    tiles of TILE_W columns a table, ``blocks`` one-warp blocks claiming
+    the G * tiles tickets in order.  Ticket k is tile t = k // G
+    of table g = k % G (csrc/row_walk.cuh), so the tile to a tile's left,
+    its producer, always has the lower ticket."""
+    g: int
+    n: int
+    m: int
+    tiles: int
+    blocks: int
+
+    def ticket(self, g: int, t: int) -> int:
+        return t * self.g + g
+
+    def tile_of(self, k: int):
+        """(g, t) of ticket ``k``."""
+        return k % self.g, k // self.g
+
+    def columns(self, t: int) -> range:
+        return range(t * TILE_W, min((t + 1) * TILE_W, self.m))
+
+    @property
+    def halo_len(self) -> int:
+        """f64 halo: one column of n rows per tile boundary (at least 1)."""
+        return max(1, self.g * (self.tiles - 1) * self.n)
+
+
+def tile_plan(g: int, n: int, m: int, sms: int) -> TilePlan:
+    """K1/K2's geometry on a card of ``sms`` SMs: one-warp blocks, one a
+    tile up to _BLOCKS_PER_SM an SM; a warp that outlives its first tile
+    claims the next ticket."""
+    if min(g, n, m, sms) < 1:
+        raise ValueError(f"tile_plan: empty ({g}, {n}, {m}) or {sms} SMs")
+    tiles = -(-m // TILE_W)
+    return TilePlan(g, n, m, tiles, min(g * tiles, sms * _BLOCKS_PER_SM))
+
+
+def _walk(name: str, a: torch.Tensor, shape, with_srel: bool):
+    """Allocate the tables of ``shape`` ((G, n, m) for K1, (n, m) for K2)
+    and the walk's scratch (the halo, NaN until written, and the ticket
+    counter), and launch the kernel, whose dimensions are the shape's."""
+    g = shape[0] if len(shape) == 3 else 1
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = tile_plan(g, *shape[-2:], sms)
+    vtab = torch.empty(shape, dtype=a.dtype, device=a.device)
+    srel = torch.empty_like(vtab) if with_srel else None
+    halo = torch.full((plan.halo_len,), float("nan"), dtype=torch.float64,
+                      device=a.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
+    _launch(name, a, vtab.data_ptr(), srel.data_ptr() if with_srel else None,
+            halo.data_ptr(), ticket.data_ptr(), *shape, int(with_srel),
+            plan.tiles, plan.blocks)
+    return vtab, srel
+
+
 # -- K1: the discount grid ---------------------------------------------------
 
 def fill_grid_ref(avec: torch.Tensor, n_max: int, m_max: int,
@@ -177,15 +262,8 @@ def fill_grid_cuda(avec: torch.Tensor, n_max: int, m_max: int,
         raise ValueError("fill_grid_cuda: avec must be a (G,) vector")
     if m_max > _MAX_M:
         raise ValueError(f"fill_grid_cuda: m_max={m_max} > {_MAX_M}, the "
-                         "kernel's shared row buffer")
-    g = avec.shape[0]
-    vtab = torch.empty((g, n_max, m_max), dtype=avec.dtype,
-                       device=avec.device)
-    srel = torch.empty_like(vtab) if with_srel else None
-    _launch("fill_grid", avec, vtab.data_ptr(),
-            srel.data_ptr() if with_srel else None,
-            g, n_max, m_max, int(with_srel))
-    return vtab, srel
+                         "widest grid tested on the card")
+    return _walk("fill_grid", avec, (avec.shape[0], n_max, m_max), with_srel)
 
 
 def fill_grid(avec: torch.Tensor, n_max: int, m_max: int,
@@ -217,13 +295,8 @@ def fill_table_cuda(a: torch.Tensor, n_max: int, m_max: int,
         raise ValueError("fill_table_cuda: one discount only")
     if m_max > TABLE_MAX_M:
         raise ValueError(f"fill_table_cuda: m_max={m_max} > {TABLE_MAX_M}, "
-                         "the kernel's shared row buffer")
-    vtab = torch.empty((n_max, m_max), dtype=a.dtype, device=a.device)
-    srel = torch.empty_like(vtab) if with_srel else None
-    _launch("fill_table", a, vtab.data_ptr(),
-            srel.data_ptr() if with_srel else None,
-            n_max, m_max, int(with_srel))
-    return vtab, srel
+                         "the widest table tested on the card")
+    return _walk("fill_table", a, (n_max, m_max), with_srel)
 
 
 def fill_table(a: torch.Tensor, n_max: int, m_max: int,

@@ -17,6 +17,11 @@ torch.set_num_threads(1)
 
 AVEC = np.linspace(0.0, 0.9, 8)
 N, M = 160, 48
+# tile edges of the row walk (TILE_W = 32 columns a tile, the halo read 32
+# rows at a time): m = 1, m < W, m = W, m = W + 1, m = 2W + 1; n = 1, n < 32,
+# n = 33
+TILE_EDGES = [(20, 1), (33, 1), (20, 17), (33, 32), (20, 33), (33, 33),
+              (33, 65), (1, 65), (2, 33), (100, 65)]
 
 
 @pytest.fixture(scope="module")
@@ -92,14 +97,64 @@ def test_row_count_trimmed():
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("g", [1, 64])
+@pytest.mark.parametrize("n,m", TILE_EDGES + [(N, M), (16384, 1024)])
+def test_tile_plan_covers_columns(g, n, m):
+    """Every column of every table lies in exactly one tile, every tile
+    has exactly one ticket, and a tile's producer (the tile to its left)
+    has the lower ticket, so the kernel's in-order claims cannot wait on
+    a tile nobody holds."""
+    plan = sc.tile_plan(g, n, m, 132)
+    assert plan.tiles == -(-m // sc.TILE_W)
+    cols = [c for t in range(plan.tiles) for c in plan.columns(t)]
+    assert cols == list(range(m))
+    tickets = [plan.ticket(gi, t) for gi in range(g)
+               for t in range(plan.tiles)]
+    assert sorted(tickets) == list(range(g * plan.tiles))
+    for k in range(g * plan.tiles):
+        gi, t = plan.tile_of(k)
+        assert plan.ticket(gi, t) == k
+        if t > 0:
+            assert plan.ticket(gi, t - 1) < k
+    assert plan.halo_len == max(1, g * (plan.tiles - 1) * n)
+
+
+@pytest.mark.parametrize("g,n,m,sms,blocks", [
+    (64, 16384, 1024, 132, 2048),       # K1 bench shape: 2048 tiles
+    (1, 16384, 1024, 132, 32),          # K2: 32 tiles, one warp an SM
+    (1, 5, 1, 132, 1),                  # one column
+    (96, 300, 300, 132, 960),           # a gate grid: 960 tiles
+    (64, 16384, 8192, 132, 2112),       # more tiles than fit: warps loop
+    (3, 10, 100, 1, 12),                # one SM
+])
+def test_tile_plan_geometry(g, n, m, sms, blocks):
+    """One block a tile, up to 16 one-warp blocks an SM."""
+    plan = sc.tile_plan(g, n, m, sms)
+    assert plan.blocks == blocks
+    assert 1 <= plan.blocks <= min(g * plan.tiles, 16 * sms)
+
+
+def test_tile_plan_rejects_empty():
+    for args in ((0, 5, 5, 132), (1, 0, 5, 132), (1, 5, 0, 132),
+                 (1, 5, 5, 0)):
+        with pytest.raises(ValueError):
+            sc.tile_plan(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,v_rtol,s_atol", [
     (torch.float32, 2e-5, 1e-4), (torch.float64, 1e-12, 1e-10)])
-def test_kernel_matches_ref(cuda_device, dtype, v_rtol, s_atol):
-    avec = torch.tensor(AVEC, dtype=dtype, device=cuda_device)
-    v, s = sc.fill_grid(avec, N, M)
+@pytest.mark.parametrize("g,n,m", [(len(AVEC), N, M)] + [
+    (g, n, m) for g in (1, 64) for n, m in TILE_EDGES])
+def test_kernel_matches_ref(cuda_device, dtype, v_rtol, s_atol, g, n, m):
+    avec = torch.linspace(0.0, 0.9, g, dtype=dtype, device=cuda_device)
+    v, s = sc.fill_grid(avec, n, m)
     torch.cuda.synchronize()
-    v64, s64 = sc.fill_grid_ref(avec.double().cpu(), N, M)
+    v64, s64 = sc.fill_grid_ref(avec.double().cpu(), n, m)
+    _assert_close_tables(v, s, v64, s64, v_rtol, s_atol)
+
+
+def _assert_close_tables(v, s, v64, s64, v_rtol, s_atol):
     v, s = v.double().cpu(), s.double().cpu()
     live = torch.isfinite(v64) & (v64 > 0)
     torch.testing.assert_close(v[live], v64[live], rtol=v_rtol, atol=0)
@@ -114,7 +169,7 @@ def test_kernel_matches_ref(cuda_device, dtype, v_rtol, s_atol):
 @pytest.mark.cuda
 def test_kernel_nosrel_and_ragged_m(cuda_device):
     avec = torch.tensor([0.1, 0.7], dtype=torch.float32, device=cuda_device)
-    v, s = sc.fill_grid(avec, 300, 1500, with_srel=False)   # 2 cols/thread
+    v, s = sc.fill_grid(avec, 300, 1500, with_srel=False)   # ragged tile
     assert s is None
     v64, _ = sc.fill_grid_ref(avec.double().cpu(), 300, 1500, False)
     live = torch.isfinite(v64) & (v64 > 0)

@@ -28,6 +28,14 @@ COLS_CASES = [            # tests/test_pallas.py:119-124
 # thread count, n not a multiple of a warp's 32-row group
 EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
               (0.2, 1, 1), (0.55, 3000, 1500)]
+# tile edges of K2's row walk (32 columns a tile, the halo read 32 rows at
+# a time): m = 1, m < 32, m = 32, 33, 65; n = 1, 2, n < 32, n = 33
+TILE_EDGES = [(0.4321, n, m) for n, m in (
+    (20, 1), (33, 1), (20, 17), (33, 32), (20, 33), (33, 33), (33, 65),
+    (1, 65), (2, 33), (100, 65))]
+# narrow tables that fill_route sends to K3 (n >= 17 m): m = 1, 2, 17
+NARROW_CASES = [(0.4321, 20, 1), (0.4321, 33, 1), (0.0, 700, 1),
+                (0.3, 40, 2), (0.9, 100, 2), (0.5, 300, 17), (0.0, 1000, 17)]
 
 
 @pytest.fixture(scope="module")
@@ -132,8 +140,17 @@ def test_cuda_launchers_reject_cpu_tensors():
     ("cpu", 100, 10, True, "fill_rows"),
     ("cpu", 1 << 20, 1024, True, "fill_rows"),
     ("cuda", 100, 10, True, "fill_table"),
-    ("cuda", (1 << 16) - 1, 1024, True, "fill_table"),
+    ("cuda", 16 * 1024, 1024, True, "fill_table"),
+    ("cuda", 17 * 1024 - 1, 1024, True, "fill_table"),
+    ("cuda", 17 * 1024, 1024, True, "fill_table_cols"),
+    ("cuda", 16, 1, True, "fill_table"),
+    ("cuda", 17, 1, True, "fill_table_cols"),
+    ("cuda", 33, 2, True, "fill_table"),
+    ("cuda", 300, 17, True, "fill_table_cols"),
+    ("cuda", (1 << 16) - 1, 1024, True, "fill_table_cols"),
     ("cuda", 1 << 16, 1024, True, "fill_table_cols"),
+    ("cuda", 4096, 1024, True, "fill_table"),
+    ("cuda", 16384, 64, True, "fill_table_cols"),
     ("cuda", (1 << 24) - 1, 8, True, "fill_table_cols"),
     ("cuda", 1 << 24, 8, True, "fill_table"),
     ("cuda", 1 << 16, 64, False, "fill_table"),
@@ -143,9 +160,9 @@ def test_cuda_launchers_reject_cpu_tensors():
     ("cuda:1", 1000, 200, True, "fill_table"),
 ])
 def test_fill_route(device, n, m, build_v, route):
-    """On a CUDA device every fill is a kernel: K3 from n = 2^16 (below
-    2^24) or past K2's shared row, K2 otherwise; the plain fill only on the
-    CPU."""
+    """On a CUDA device every fill is a kernel: K3 from n = 17 m (below
+    2^24, the crossover measured on the card) or past K2's widest table,
+    K2 otherwise; the plain fill only on the CPU."""
     assert tst.fill_route(device, n, m, build_v) == route
 
 
@@ -166,7 +183,8 @@ def test_sources_named_and_flags():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,v_rtol,s_atol", [
     (torch.float32, 2e-5, 1e-4), (torch.float64, 1e-12, 1e-10)])
-@pytest.mark.parametrize("a,N,M", [(A1, N1, M1)] + EDGE_CASES)
+@pytest.mark.parametrize("a,N,M", [(A1, N1, M1)] + EDGE_CASES + TILE_EDGES
+                         + NARROW_CASES)
 def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
     v64, s64 = sc.fill_table_ref(_a(a), N, M)
     at = _a(a, dtype, cuda_device)
@@ -188,6 +206,39 @@ def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
         assert err.max().item() < s_atol
         assert torch.equal(torch.isneginf(s), torch.isneginf(s64))
         assert not bool(torch.isnan(v).any() or torch.isnan(s).any())
+
+
+def test_target_hashes_included_headers(tmp_path, monkeypatch):
+    """K1 and K2 include csrc/row_walk.cuh: editing the header renames
+    both libraries, so a stale build is never loaded; K3 includes no
+    header of the package and keeps its name."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in sc.SOURCES["fill_grid"].parent.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(sc, "SOURCES", {
+        name: csrc / path.name for name, path in sc.SOURCES.items()})
+    before = {name: sc._target(name) for name in sc.KERNELS}
+    header = csrc / "row_walk.cuh"
+    assert b'#include "row_walk.cuh"' in sc.SOURCES["fill_grid"].read_bytes()
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: sc._target(name) for name in sc.KERNELS}
+    assert after["fill_grid"] != before["fill_grid"]
+    assert after["fill_table"] != before["fill_table"]
+    assert after["fill_table_cols"] == before["fill_table_cols"]
+    assert all(after[n].name.startswith(f"{n}_") for n in sc.KERNELS)
+
+
+def test_source_bytes_follows_includes_once(tmp_path):
+    """Quoted includes are followed recursively, each file once, so a
+    cycle or a header included twice ends."""
+    (tmp_path / "a.cu").write_bytes(b'#include "b.cuh"\n#include <math.h>\n'
+                                    b'  # include "c.cuh"\n')
+    (tmp_path / "b.cuh").write_bytes(b'#include "c.cuh"\nB\n')
+    (tmp_path / "c.cuh").write_bytes(b'#include "b.cuh"\nC\n')
+    got = sc._source_bytes(tmp_path / "a.cu", set())
+    assert got.count(b"B\n") == 1 and got.count(b"C\n") == 1
+    assert got.startswith((tmp_path / "a.cu").read_bytes())
 
 
 @pytest.mark.cuda
