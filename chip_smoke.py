@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
-  1. build the hand-written kernels K1-K3 (csrc/*.cu, K1 and K2 sharing
+  1. build the hand-written kernels K1-K3 (csrc/*.cu, all three sharing
      csrc/row_walk.cuh) with nvcc, one process per source, all at once;
   2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) and
      at the row walk's tile edges (G = 1 and 64) in f32 and f64, (b) at
@@ -27,18 +27,23 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      1024) in f32 against the f64 plain fill, (c) K2's and the plain f32
      fill's times, K2's bound, its share of it and of the copy roofline;
   6. K3 (csrc/fill_table_cols.cu) against its plain version: (a) the
-     tests/test_pallas.py cases, edge shapes and narrow tables on K3's
-     side of the route (m = 1, 2, 17), (b) at (2^20, 1024) in
-     f32 against K1 at G=1 in f64, (c) K3's and the plain f32 fill's times
-     at (2^16, 1024), and K3's at (2^20, 1024) as a share of the copy
-     roofline;
-  7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K2),
-     ensure past the K2/K3 cutoff (K3), remake, and cli/list_torch.py,
+     tests/test_pallas.py cases, edge shapes, narrow tables on K3's side
+     of the route (m = 1, 2, 17) and the pipeline's chunk edges (n a
+     chunk - 1, + 1 and three chunks at m = 1, 2, 40) in f32 and f64, and
+     past the resident capacity (2^21, 16), chunks in two waves, in f32
+     and f64 against K1 at G=1 in f64, (b) at (2^20, 1024) in f32 against
+     K1 at G=1 in f64, (c) K3's and the plain f32 fill's times at (2^16,
+     1024), K3's at (2^20, 1024), each as a share of its bound and per
+     column, and at 2^20 as a share of the copy roofline;
+  7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K3, n >=
+     4 m) and make(1000, 300, ...) (K2), ensure to 81920 x 256 (K3),
+     remake, and cli/list_torch.py,
      held to plain-f64 tables built on the card, with each kernel's launch
      count over that run and no plain fill on it;
-  8. the K2/K3 crossover: both kernels at six (n, m) shapes (CUDA events,
-     median of 7), and stirling.fill_route's choice at each, which must be
-     within 1.1x of the faster.
+  8. the K2/K3 crossover: both kernels at the CROSSOVER (n, m) shapes,
+     two of them at the routing cutoff (CUDA events, median of 7), and
+     stirling.fill_route's choice at each, which must be within 1.1x of
+     the faster.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -70,8 +75,9 @@ FILL_FLOPS = 12 + 3 * 20
 # time): m = 1, m < 32, m = 32, 33, 65; n = 1, 2, n < 32, n = 33
 TILE_EDGES = [(20, 1), (33, 1), (20, 17), (33, 32), (20, 33), (33, 33),
               (33, 65), (1, 65), (2, 33), (100, 65)]
-CROSSOVER = [(1000, 200), (1024, 1024), (4096, 1024), (16384, 1024),
-             (65535, 1024), (16384, 64)]
+# K2 against K3; (4096, 1024) and (8192, 2048) are at the cutoff, n = 4 m
+CROSSOVER = [(1000, 200), (1024, 1024), (4096, 1024), (8192, 2048),
+             (16384, 1024), (65535, 1024), (16384, 64)]
 
 
 def bound(cells, itemsize):
@@ -162,10 +168,15 @@ def scaled_err(s, s64):
 # count, n not a multiple of a warp's 32-row group
 EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
               (0.2, 1, 1), (0.55, 3000, 1500)]
-# narrow tables that fill_route sends to K3 (n >= 17 m): m = 1, 2, 17
+# narrow tables that fill_route sends to K3 (n >= 4 m): m = 1, 2, 17
 NARROW_CASES = [(0.4321, 20, 1), (0.4321, 33, 1), (0.0, 700, 1),
                 (0.3, 40, 2), (0.9, 100, 2), (0.5, 300, 17),
                 (0.0, 1000, 17)]
+# K3's chunk edges (chunks of 512 rows below 2^16 rows): n one below and
+# one above a chunk, and three chunks, at m = 1, 2, 40
+CHUNK_EDGES = [(0.37, n, m) for m in (1, 2, 40) for n in (511, 513, 1500)]
+# past K3's resident capacity: 2^21 rows make 228 chunks on 132 SMs
+WAVES_SHAPE = (1 << 21, 16)
 
 
 def phase5_k2(dev, sc, stirling, card, roof):
@@ -237,10 +248,10 @@ def phase6_k3(dev, sc, stirling, card, roof):
     """K3 against its plain version and K1; returns its kernels-line
     fields."""
     t0 = phase("6a K3 vs plain: test_pallas cases, edge shapes, narrow "
-               "tables")
+               "tables, chunk edges; two waves vs K1")
     cases = [(0.4321, 200, 64), (0.55, 512, 48), (0.05, 384, 32),
              (0.0, 256, 24)]
-    for a, n, m in cases + EDGE_CASES + NARROW_CASES:
+    for a, n, m in cases + EDGE_CASES + NARROW_CASES + CHUNK_EDGES:
         v64, s64 = sc.fill_table_ref(torch.tensor(a, dtype=torch.float64,
                                                   device=dev), n, m)
         for dt in (torch.float32, torch.float64):
@@ -262,6 +273,27 @@ def phase6_k3(dev, sc, stirling, card, roof):
                                        with_srel=False)
     check(s_n is None and torch.equal(v_n, sc.fill_table_cols_cuda(
         torch.tensor(0.3, device=dev), 300, 40)[0]), "K3 with_srel=False")
+    # two waves: the f64 row walk is the reference (the plain fill would
+    # take minutes at 2M rows); f32 to the 6b bounds, f64 to 1e-9 (two
+    # f64 orders of summation over 2M rows)
+    n, m = WAVES_SHAPE
+    a = torch.tensor(0.5, dtype=torch.float64, device=dev)
+    plan = sc.cols_plan(n, m, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    check(plan.waves >= 2, f"{WAVES_SHAPE} runs in one wave: {plan}")
+    v64, s64 = sc.fill_grid_cuda(a.reshape(1), n, m)
+    for dt, tol in ((torch.float32, (1e-4, 5e-2)), (torch.float64,
+                                                    (1e-9, 1e-9))):
+        v, s = sc.fill_table_cols_cuda(a.to(dt), n, m)
+        torch.cuda.synchronize()
+        v_rel, s_abs, _ = table_errors(v.T, s.T, v64[0], s64[0])
+        print(f"   {WAVES_SHAPE} {dt} ({plan.chunks} chunks of {plan.chunk} "
+              f"rows, {plan.waves} waves): V rel {v_rel:.6g}, |dSrel| "
+              f"{s_abs:.6g}")
+        check(v_rel < tol[0] and s_abs <= tol[1],
+              f"K3 {dt} at {WAVES_SHAPE}: V rel {v_rel:.3g}, |dSrel| "
+              f"{s_abs:.3g}")
+    del v, s, v64, s64
     done(t0)
 
     t0 = phase("6b K3 (f32) vs K1 at G=1 (f64) at (2^20, 1024)")
@@ -290,9 +322,10 @@ def phase6_k3(dev, sc, stirling, card, roof):
     b16, b16_by = bound(n16 * M, 4)
     b20, b20_by = bound(N * M, 4)
     print(f"   (2^16, 1024): K3 {k16:.4f} ms (median of 5) = "
-          f"{100 * b16 / k16:.2f}% of its bound {b16:.4f} ms ({b16_by}), "
-          f"plain f32 fill {p16:.1f} ms (one run); (2^20, 1024): K3 "
-          f"{k20:.4f} ms (median of 3) = {bw / 1e9:.1f} GB/s = "
+          f"{1e3 * k16 / M:.3f} us a column = {100 * b16 / k16:.2f}% of its "
+          f"bound {b16:.4f} ms ({b16_by}), plain f32 fill {p16:.1f} ms (one "
+          f"run); (2^20, 1024): K3 {k20:.4f} ms (median of 3) = "
+          f"{1e3 * k20 / M:.3f} us a column = {bw / 1e9:.1f} GB/s = "
           f"{100 * bw / roof:.1f}% of the copy roofline = "
           f"{100 * b20 / k20:.2f}% of its bound {b20:.4f} ms ({b20_by}) "
           f"[{card}]")
@@ -348,7 +381,7 @@ def check_queries(t, ref, n, m, what):
 
 def phase7_table(dev, sc, stirling, card):
     """The single-table path end to end; returns each kernel's launches."""
-    t0 = phase("7 single-table path: make (K2), ensure (K3), remake, "
+    t0 = phase("7 single-table path: make (K3; K2), ensure (K3), remake, "
                "list_torch")
     plain_calls = []
     fill_rows = stirling.fill_rows
@@ -367,6 +400,10 @@ def phase7_table(dev, sc, stirling, card):
                           device=dev)
         torch.cuda.synchronize()
         make_s = time.perf_counter() - t_run
+        k3_make = sc.LAUNCHES["fill_table_cols"]
+        tw = stirling.make(1000, 300, 10 ** 6, 10 ** 4, 0.5, use_asympt=True,
+                           device=dev)
+        torch.cuda.synchronize()
         k2_make = sc.LAUNCHES["fill_table"]
         t_run = time.perf_counter()
         t2 = stirling.ensure(t, 70000, 200)
@@ -390,7 +427,8 @@ def phase7_table(dev, sc, stirling, card):
     check(not plain_calls, "the plain fill ran on the single-table path")
     print("   " + "\n   ".join(buf.getvalue().strip().splitlines()[-3:]))
 
-    check(not t.cols and k2_make == 1 and t.report().endswith(
+    # the Quick-start table has n >= 4 m: K3; (1000, 300) is on K2's side
+    check(t.cols and k3_make == 1 and t.report().endswith(
         f"float32 mem={(2 * 1000 * 200 * 4 + 2 * 1000 * 4) // 1024}k"),
         f"make: {t.report()}")
     ref = plain_table(stirling, t, 1000, 200, 0.5, dev)
@@ -426,10 +464,16 @@ def phase7_table(dev, sc, stirling, card):
     n3 = rng.integers(1, 2001, 300)
     m3 = rng.integers(1, 257, 300)
     w3 = check_queries(t3, ref3, n3, m3, "remake")
+
+    check(not tw.cols and k2_make == 1, f"make(1000, 300): {tw.report()}")
+    refw = plain_table(stirling, tw, 1000, 300, 0.5, dev)
+    ww = check_queries(tw, refw, rng.integers(1, 1001, 300),
+                       rng.integers(1, 301, 300), "make (1000, 300)")
     print(f"   make {make_s:.3f} s, ensure to {t2.n_max} x {t2.m_max} "
           f"{ensure_s:.3f} s (host clock, incl. S1); worst error / bound: "
           f"make {max(w1.values()):.3g}, ensure {max(w2.values()):.3g}, "
-          f"remake {max(w3.values()):.3g}; S(200, 43) = {s_200_43:.6f} "
+          f"remake {max(w3.values()):.3g}, make (1000, 300) "
+          f"{max(ww.values()):.3g}; S(200, 43) = {s_200_43:.6f} "
           f"[{card}]")
     done(t0)
     return launches

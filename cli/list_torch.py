@@ -6,7 +6,7 @@ Prints S / V / U values for a discount, compares exact table values
 against the asymptotic expressions (list.c:91-109), and exercises
 auto-extension by querying beyond the initial bounds (list.c:119-127).
 On a CUDA device the table is filled by the hand-written kernels (K2, or
-K3 for n >= 17 m); on the CPU by the plain fill.
+K3 for n >= 4 m); on the CPU by the plain fill.
 
   python cli/list_torch.py -a 0.5 -N 100 -M 20 --asymptote
 """

@@ -389,12 +389,12 @@ class StirlingTable:
 # On a CUDA device a table takes the column-scan kernel K3 once it has at
 # least COLS_MIN_RATIO rows per column (up to stirling_cuda.COLS_MAX_N),
 # the row walk K2 below that.  The ratio is the crossover measured on an
-# H100 (chip_smoke.py phase 8): K2 costs about one row step (~0.25 us) per
-# row plus one per column (its wavefront), K3 about 18 row steps per column
-# below 2^16 rows, so the two meet near n + m = 18 m (K2 ahead at (16384,
-# 1024), (4096, 1024) and (1000, 200); K3 at (65535, 1024) and (16384,
-# 64)).
-COLS_MIN_RATIO = 17
+# H100 (chip_smoke.py phase 8, tools/k3_compare_torch.py --crossover): K2
+# costs about one row step (~0.25 us) per row plus one per column (its
+# wavefront), K3 about 1.3-1.5 us, five row steps, per column below 2^16
+# rows, so the two meet near n + m = 5 m: at n = 4 m K3 is within 3% of
+# K2 either way for m = 64-4096, at 5 m ahead by 15-22%.
+COLS_MIN_RATIO = 4
 
 
 def fill_route(device, n: int, m: int, build_v: bool = True) -> str:

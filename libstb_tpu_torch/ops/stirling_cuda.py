@@ -16,7 +16,9 @@ libstb_tpu/ops/stirling_pallas.py:
   order the kernel claims tiles in;
 * K3 ``fill_table_cols`` (csrc/fill_table_cols.cu): one discount by a
   parallel scan over n, one column at a time, written column-major
-  (m, n).
+  (m, n).  The rows are cut into chunks, one block a chunk for every
+  column, and each chunk's last V reaches the next chunk through a halo;
+  ``cols_plan`` sets the geometry (chunks, blocks, waves, shared memory).
 
 Each public function runs where its discount tensor lies: on the CPU the
 ``*_ref`` plain version (core/stirling.fill_rows, the same function the
@@ -48,7 +50,7 @@ import torch
 from ..core import stirling
 
 __all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref", "tile_plan",
-           "fill_table", "fill_table_cuda", "fill_table_ref",
+           "fill_table", "fill_table_cuda", "fill_table_ref", "cols_plan",
            "fill_table_cols", "fill_table_cols_cuda", "fill_table_cols_ref",
            "build_all", "load", "KERNELS", "LAUNCHES"]
 
@@ -68,9 +70,13 @@ TABLE_MAX_M = 14336
 _MAX_N_F32 = 1 << 24                  # the TPU kernels' f32 row-index bound
 # K3 takes n < 2^24 rows, the bound of the JAX kernel it replaces
 COLS_MAX_N = 1 << 24
-# K3's f64 scratch: 1/V of two columns, the Kahan pair of Srel, and the
-# per-block maps (csrc/fill_table_cols.cu: kMaxBlocks)
-_COLS_MAX_BLOCKS = 1024
+# K3 geometry (csrc/fill_table_cols.cu): a block is 16 row warps and a
+# carry warp, a chunk the same number of rows for each of the 512 row
+# threads; a block keeps its chunk's row state in shared memory, V with a
+# pad every 16 rows and Srel's Kahan pair (24.5 bytes a row, 8.5 without
+# Srel), within the 227 KB a block may have less 1 KB of static arrays
+COLS_ROW_STEP = 512
+COLS_SMEM_MAX = 232448 - 1024
 
 # K1/K2 geometry (csrc/row_walk.cuh): a tile is one warp's 32 columns (and
 # reads its left neighbour's halo 32 rows at a time); a block is one warp,
@@ -85,7 +91,7 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "fill_table": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "fill_table_cols": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "fill_table_cols": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 
@@ -311,6 +317,60 @@ def fill_table(a: torch.Tensor, n_max: int, m_max: int,
 
 # -- K3: one table by columns, a parallel scan over n -------------------------
 
+class ColsPlan(NamedTuple):
+    """The launch geometry of K3 for an (n, m) table: ``chunks`` chunks of
+    ``chunk`` rows (the last one partial), one block a chunk for every
+    column, ``blocks`` blocks claiming the chunks in row order.  Chunk c's
+    ticket is c and its producer, the chunk before it, holds ticket c - 1
+    (csrc/fill_table_cols.cu), so a producer always runs before its
+    consumer; past the blocks on the card the chunks run in waves."""
+    n: int
+    m: int
+    with_srel: bool
+    chunk: int
+    chunks: int
+    blocks: int
+
+    def rows(self, c: int) -> range:
+        return range(c * self.chunk, min((c + 1) * self.chunk, self.n))
+
+    def ticket(self, c: int) -> int:
+        return c
+
+    @property
+    def waves(self) -> int:
+        return -(-self.chunks // self.blocks)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block asks for: its chunk's row state."""
+        return _cols_smem(self.chunk, self.with_srel)
+
+    @property
+    def halo_len(self) -> int:
+        """f64 halo: V at the last row of every chunk but the last, for
+        every column (at least 1)."""
+        return max(1, (self.chunks - 1) * self.m)
+
+
+def _cols_smem(chunk: int, with_srel: bool) -> int:
+    return 8 * (chunk + chunk // 16) + (16 * chunk if with_srel else 0)
+
+
+def cols_plan(n: int, m: int, sms: int, with_srel: bool = True) -> ColsPlan:
+    """K3's geometry on a card of ``sms`` SMs: n split evenly over the SMs
+    in chunks of whole COLS_ROW_STEPs, each at most what a block's shared
+    memory holds with Srel; one block an SM, up to one a chunk."""
+    if min(n, m, sms) < 1:
+        raise ValueError(f"cols_plan: empty ({n}, {m}) or {sms} SMs")
+    step = COLS_ROW_STEP
+    # one cap with or without Srel, so that V does not depend on it
+    cap = COLS_SMEM_MAX // _cols_smem(step, True) * step
+    chunk = min(max(-(-n // (sms * step)) * step, step), cap)
+    chunks = -(-n // chunk)
+    return ColsPlan(n, m, bool(with_srel), chunk, chunks, min(chunks, sms))
+
+
 def fill_table_cols_ref(a: torch.Tensor, n_max: int, m_max: int,
                         with_srel: bool = True):
     """Plain PyTorch fill in K3's layout: (V, Srel) of shape (m_max,
@@ -328,13 +388,17 @@ def fill_table_cols_cuda(a: torch.Tensor, n_max: int, m_max: int,
         raise ValueError("fill_table_cols_cuda: one discount only")
     if n_max >= COLS_MAX_N:
         raise ValueError(f"fill_table_cols_cuda: n_max={n_max} >= 2^24")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = cols_plan(n_max, m_max, sms, with_srel)
     vtab = torch.empty((m_max, n_max), dtype=a.dtype, device=a.device)
     srel = torch.empty_like(vtab) if with_srel else None
-    scratch = torch.empty(4 * n_max + 2 * _COLS_MAX_BLOCKS,
-                          dtype=torch.float64, device=a.device)
+    halo = torch.full((plan.halo_len,), float("nan"), dtype=torch.float64,
+                      device=a.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
     _launch("fill_table_cols", a, vtab.data_ptr(),
-            srel.data_ptr() if with_srel else None, scratch.data_ptr(),
-            n_max, m_max, int(with_srel))
+            srel.data_ptr() if with_srel else None, halo.data_ptr(),
+            ticket.data_ptr(), n_max, m_max, int(with_srel), plan.chunk,
+            plan.chunks, plan.blocks, plan.smem)
     return vtab, srel
 
 

@@ -33,9 +33,12 @@ EDGE_CASES = [(0.0, 5, 1), (0.3, 3, 9), (0.5, 77, 33), (0.9, 40, 50),
 TILE_EDGES = [(0.4321, n, m) for n, m in (
     (20, 1), (33, 1), (20, 17), (33, 32), (20, 33), (33, 33), (33, 65),
     (1, 65), (2, 33), (100, 65))]
-# narrow tables that fill_route sends to K3 (n >= 17 m): m = 1, 2, 17
+# narrow tables that fill_route sends to K3 (n >= 4 m): m = 1, 2, 17
 NARROW_CASES = [(0.4321, 20, 1), (0.4321, 33, 1), (0.0, 700, 1),
                 (0.3, 40, 2), (0.9, 100, 2), (0.5, 300, 17), (0.0, 1000, 17)]
+# chunk edges of K3's pipeline (chunks of 512 rows below 2^16 rows): n one
+# below and one above a chunk, and three chunks, at m = 1, 2, 40
+CHUNK_EDGES = [(0.37, n, m) for m in (1, 2, 40) for n in (511, 513, 1500)]
 
 
 @pytest.fixture(scope="module")
@@ -139,17 +142,17 @@ def test_cuda_launchers_reject_cpu_tensors():
 @pytest.mark.parametrize("device,n,m,build_v,route", [
     ("cpu", 100, 10, True, "fill_rows"),
     ("cpu", 1 << 20, 1024, True, "fill_rows"),
-    ("cuda", 100, 10, True, "fill_table"),
-    ("cuda", 16 * 1024, 1024, True, "fill_table"),
-    ("cuda", 17 * 1024 - 1, 1024, True, "fill_table"),
-    ("cuda", 17 * 1024, 1024, True, "fill_table_cols"),
-    ("cuda", 16, 1, True, "fill_table"),
-    ("cuda", 17, 1, True, "fill_table_cols"),
-    ("cuda", 33, 2, True, "fill_table"),
-    ("cuda", 300, 17, True, "fill_table_cols"),
+    ("cuda", 39, 10, True, "fill_table"),
+    ("cuda", 3 * 1024, 1024, True, "fill_table"),
+    ("cuda", 4 * 1024 - 1, 1024, True, "fill_table"),
+    ("cuda", 4 * 1024, 1024, True, "fill_table_cols"),
+    ("cuda", 3, 1, True, "fill_table"),
+    ("cuda", 4, 1, True, "fill_table_cols"),
+    ("cuda", 7, 2, True, "fill_table"),
+    ("cuda", 68, 17, True, "fill_table_cols"),
     ("cuda", (1 << 16) - 1, 1024, True, "fill_table_cols"),
     ("cuda", 1 << 16, 1024, True, "fill_table_cols"),
-    ("cuda", 4096, 1024, True, "fill_table"),
+    ("cuda", 2048, 1024, True, "fill_table"),
     ("cuda", 16384, 64, True, "fill_table_cols"),
     ("cuda", (1 << 24) - 1, 8, True, "fill_table_cols"),
     ("cuda", 1 << 24, 8, True, "fill_table"),
@@ -157,12 +160,12 @@ def test_cuda_launchers_reject_cpu_tensors():
     ("cuda", 20000, 14337, True, "fill_table_cols"),
     ("cuda", 20000, 14337, False, "fill_table_cols"),
     ("cuda", 20000, 14336, True, "fill_table"),
-    ("cuda:1", 1000, 200, True, "fill_table"),
+    ("cuda:1", 1000, 200, True, "fill_table_cols"),
 ])
 def test_fill_route(device, n, m, build_v, route):
-    """On a CUDA device every fill is a kernel: K3 from n = 17 m (below
-    2^24, the crossover measured on the card) or past K2's widest table,
-    K2 otherwise; the plain fill only on the CPU."""
+    """On a CUDA device every fill is a kernel: K3 from n = 4 m (below
+    2^24, set from the crossover measured on the card) or past K2's widest
+    table, K2 otherwise; the plain fill only on the CPU."""
     assert tst.fill_route(device, n, m, build_v) == route
 
 
@@ -184,7 +187,7 @@ def test_sources_named_and_flags():
 @pytest.mark.parametrize("dtype,v_rtol,s_atol", [
     (torch.float32, 2e-5, 1e-4), (torch.float64, 1e-12, 1e-10)])
 @pytest.mark.parametrize("a,N,M", [(A1, N1, M1)] + EDGE_CASES + TILE_EDGES
-                         + NARROW_CASES)
+                         + NARROW_CASES + CHUNK_EDGES)
 def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
     v64, s64 = sc.fill_table_ref(_a(a), N, M)
     at = _a(a, dtype, cuda_device)
@@ -209,9 +212,9 @@ def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
 
 
 def test_target_hashes_included_headers(tmp_path, monkeypatch):
-    """K1 and K2 include csrc/row_walk.cuh: editing the header renames
-    both libraries, so a stale build is never loaded; K3 includes no
-    header of the package and keeps its name."""
+    """K1, K2 and K3 include csrc/row_walk.cuh (K3 for its hand-off and
+    its divide and log): editing the header renames all three libraries,
+    so a stale build is never loaded."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in sc.SOURCES["fill_grid"].parent.iterdir():
@@ -220,13 +223,69 @@ def test_target_hashes_included_headers(tmp_path, monkeypatch):
         name: csrc / path.name for name, path in sc.SOURCES.items()})
     before = {name: sc._target(name) for name in sc.KERNELS}
     header = csrc / "row_walk.cuh"
-    assert b'#include "row_walk.cuh"' in sc.SOURCES["fill_grid"].read_bytes()
+    for name in sc.KERNELS:
+        assert b'#include "row_walk.cuh"' in sc.SOURCES[name].read_bytes()
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {name: sc._target(name) for name in sc.KERNELS}
     assert after["fill_grid"] != before["fill_grid"]
     assert after["fill_table"] != before["fill_table"]
-    assert after["fill_table_cols"] == before["fill_table_cols"]
+    assert after["fill_table_cols"] != before["fill_table_cols"]
     assert all(after[n].name.startswith(f"{n}_") for n in sc.KERNELS)
+
+
+# past K3's resident capacity (132 blocks of 9216 rows with Srel)
+PAST_CAPACITY = 132 * 9216 + 1
+
+
+@pytest.mark.parametrize("m", [1, 2, 17, 1024])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 1 << 16, 1 << 20, 1 << 21,
+                               PAST_CAPACITY])
+def test_cols_plan_chunks(n, m):
+    """K3's chunks cover every row once and in order, each chunk's
+    producer (the chunk before it) holds the lower ticket, the shared
+    memory a block asks for stays within the 227 KB a block may have, one
+    block an SM at most, and past the resident capacity the chunks run in
+    two waves or more."""
+    for with_srel in (True, False):
+        plan = sc.cols_plan(n, m, 132, with_srel)
+        assert (plan.n, plan.m) == (n, m)
+        assert plan.chunk % sc.COLS_ROW_STEP == 0 and plan.chunk > 0
+        rows = [plan.rows(c) for c in range(plan.chunks)]
+        assert rows[0].start == 0 and rows[-1].stop == n
+        assert all(len(r) > 0 for r in rows)
+        assert all(rows[c].stop == rows[c + 1].start
+                   for c in range(plan.chunks - 1))
+        assert all(len(r) == plan.chunk for r in rows[:-1])
+        assert [plan.ticket(c) for c in range(plan.chunks)] == list(
+            range(plan.chunks))
+        assert all(plan.ticket(c - 1) < plan.ticket(c)
+                   for c in range(1, plan.chunks))
+        per_row = 8 * 17 / 16 + (16 if with_srel else 0)
+        assert plan.smem == plan.chunk * per_row
+        assert plan.smem <= 232448 - 1024
+        assert 1 <= plan.blocks == min(plan.chunks, 132)
+        assert plan.waves == -(-plan.chunks // plan.blocks)
+        assert plan.halo_len == max(1, (plan.chunks - 1) * m)
+        if n >= PAST_CAPACITY:
+            assert plan.waves >= 2
+        if n <= 132 * 9216:
+            assert plan.waves == 1
+
+
+def test_cols_plan_geometry():
+    """Chunks of 512 rows (one for each of a block's 512 row threads) up
+    to 2^16 rows on 132 SMs, then about n / 132 rounded up to 512, capped
+    by the shared memory with Srel, 9216 rows, whether Srel is built or
+    not (so V is the same either way)."""
+    assert sc.cols_plan(1 << 16, 1024, 132)[3:] == (512, 128, 128)
+    assert sc.cols_plan(1 << 20, 1024, 132)[3:] == (8192, 128, 128)
+    assert sc.cols_plan(1 << 21, 16, 132)[3:] == (9216, 228, 132)
+    assert sc.cols_plan(1 << 21, 16, 132, False)[3:] == (9216, 228, 132)
+    assert sc.cols_plan(1000, 200, 1)[3:] == (1024, 1, 1)
+    assert sc.cols_plan(1 << 23, 8, 132, False).smem == 9216 * 17 // 2
+    for args in ((0, 5, 132), (5, 0, 132), (5, 5, 0)):
+        with pytest.raises(ValueError):
+            sc.cols_plan(*args)
 
 
 def test_source_bytes_follows_includes_once(tmp_path):

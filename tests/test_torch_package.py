@@ -46,7 +46,8 @@ def test_every_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", *sorted((ROOT / "cli").glob("*_torch.py"))],
+    ROOT / "chip_smoke.py", *sorted((ROOT / "cli").glob("*_torch.py")),
+    *sorted((ROOT / "tools").glob("*_torch.py"))],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     for node in ast.walk(ast.parse(path.read_text())):

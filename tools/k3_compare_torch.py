@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""K3 (libstb_tpu_torch/csrc/fill_table_cols.cu) on one CUDA card: its
+time beside other builds of K3 in the same process, and K2 against K3
+around the routing cutoff.
+
+  python tools/k3_compare_torch.py [--crossover] [SOURCE.cu ...]
+
+Each SOURCE is another K3 source file, built here with the package's nvcc
+flags (csrc/ on the include path) into libstb_tpu_torch/_build/.  Two C
+interfaces are known: the cooperative kernel of the port's first K3
+(``stb_fill_table_cols_f32(a, v, s, scratch, n, m, with_srel, stream)``,
+recognised by its cudaLaunchCooperativeKernel) and the chunked pipeline's
+(the package's own), whose geometry comes from stirling_cuda.cols_plan;
+a source that also exports ``stb_fill_table_cols_gmem_f32`` (the same
+pipeline with its row state in device memory) is timed both ways.  An
+older K3 is taken from git, for example
+
+  git show 471bc28:libstb_tpu_torch/csrc/fill_table_cols.cu > chip_tmp/k3_pr2.cu
+
+The fills are f32 at a = 0.5, at (2^16, 1024) and (2^20, 1024), timed
+with CUDA events (median of 5) in turns: every build, then again in the
+reverse order.  --crossover also times K2 and K3 at n = r m for r = 2..8
+(median of 7).  Every line carries the card's name and power limit.
+"""
+import argparse
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from libstb_tpu_torch.ops import stirling_cuda as sc  # noqa: E402
+
+SHAPES = ((1 << 16, 1024), (1 << 20, 1024))
+CROSS_M = (64, 100, 200, 256, 512, 1024, 2048, 4096)
+
+
+def build(path: str):
+    """The library built from ``path``; the fills it offers, by name."""
+    src = open(path, "rb").read()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    out = sc._BUILD_DIR / f"compare_{os.path.basename(path)}_{tag}.so"
+    if not out.exists():
+        sc._BUILD_DIR.mkdir(exist_ok=True)
+        subprocess.run([sc._nvcc(), *sc.NVCC_FLAGS, "-I",
+                        str(sc.SOURCES["fill_table_cols"].parent), "-o",
+                        str(out), path], check=True)
+    lib = ctypes.CDLL(str(out))
+    name = os.path.basename(path)
+    if b"cudaLaunchCooperativeKernel" in src:
+        return {name: _coop(lib.stb_fill_table_cols_f32)}
+    fills = {name: _chunked(lib.stb_fill_table_cols_f32, False)}
+    if b"stb_fill_table_cols_gmem_f32" in src:
+        fills[f"{name} (state in device memory)"] = _chunked(
+            lib.stb_fill_table_cols_gmem_f32, True)
+    return fills
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _coop(fn):
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+
+    def fill(a, n, m):
+        v = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        s = torch.empty_like(v)
+        scratch = torch.empty(4 * n + 2048, dtype=torch.float64,
+                              device=a.device)
+        err = fn(a.data_ptr(), v.data_ptr(), s.data_ptr(),
+                 scratch.data_ptr(), n, m, 1, _stream())
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+    return fill
+
+
+def _chunked(fn, gmem):
+    fn.argtypes = [ctypes.c_void_p] * (6 if gmem else 5) + [
+        ctypes.c_int] * (6 if gmem else 7) + [ctypes.c_void_p]
+
+    def fill(a, n, m):
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        p = sc.cols_plan(n, m, sms)
+        v = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        s = torch.empty_like(v)
+        halo = torch.full((p.halo_len,), float("nan"), dtype=torch.float64,
+                          device=a.device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
+        ptrs = [a.data_ptr(), v.data_ptr(), s.data_ptr(), halo.data_ptr(),
+                ticket.data_ptr()]
+        if gmem:
+            state = torch.empty(3 * p.chunks * p.chunk, dtype=torch.float64,
+                                device=a.device)
+            err = fn(*ptrs, state.data_ptr(), n, m, 1, p.chunk, p.chunks,
+                     p.blocks, _stream())
+        else:
+            err = fn(*ptrs, n, m, 1, p.chunk, p.chunks, p.blocks, p.smem,
+                     _stream())
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+    return fill
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sources", nargs="*")
+    ap.add_argument("--crossover", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("k3_compare_torch: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    a32 = torch.tensor(0.5, device=dev)
+    fills = {}
+    for path in args.sources:
+        fills.update(build(path))
+    fills["K3 (package)"] = lambda a, n, m: sc.fill_table_cols_cuda(a, n, m)
+    order = list(fills) + list(fills)[::-1]
+    for n, m in SHAPES:
+        times = {name: [] for name in fills}
+        for name in order:
+            times[name].append(cs.cuda_ms(lambda: fills[name](a32, n, m), 5))
+        b_ms, b_by = cs.bound(n * m, 4)
+        for name, (t1, t2) in times.items():
+            print(f"({n}, {m}) {name}: {t1:.4f} / {t2:.4f} ms = "
+                  f"{100 * b_ms / t1:.2f} / {100 * b_ms / t2:.2f}% of the "
+                  f"bound {b_ms:.4f} ms ({b_by}); {1e3 * t1 / m:.3f} us a "
+                  f"column [{card}]", flush=True)
+        torch.cuda.empty_cache()
+    if args.crossover:
+        for m in CROSS_M:
+            for r in range(2, 9):
+                n = r * m
+                k2 = cs.cuda_ms(lambda: sc.fill_table_cuda(a32, n, m), 7)
+                k3 = cs.cuda_ms(lambda: sc.fill_table_cols_cuda(a32, n, m),
+                                7)
+                print(f"({n}, {m}) n = {r} m: K2 {k2:.4f} ms, K3 {k3:.4f} "
+                      f"ms, K3 / K2 {k3 / k2:.3f} [{card}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()
