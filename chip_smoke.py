@@ -14,7 +14,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      discounts against the f64 plain fill, (c) the kernel's and the plain
      f32 fill's times (CUDA events, median of runs), the kernel's bound
      and its share of it, and its share of a copy roofline measured on the
-     card;
+     card, (d) past 8192 columns, through agrid.make_grid at (G=2, 12288,
+     12288) in f32 against the f64 plain fill, and at 8193 columns (a last
+     tile of one column);
   3. the main path: make_grid(512, 128, g=64) + run_gibbs with 1024
      chains x 500 iterations on crp_generate(0, 4, 20, 100) data, with
      the kernel's launch count over that run;
@@ -37,16 +39,37 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      column, and at 2^20 as a share of the copy roofline;
   7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K3, n >=
      4 m) and make(1000, 300, ...) (K2), ensure to 81920 x 256 (K3),
-     remake, and cli/list_torch.py,
+     remake, cli/list_torch.py, and an S-only make(65535, 1024,
+     build_v=False), which must take K3,
      held to plain-f64 tables built on the card, with each kernel's launch
      count over that run and no plain fill on it;
   8. the K2/K3 crossover: both kernels at the CROSSOVER (n, m) shapes,
      two of them at the routing cutoff (CUDA events, median of 7), and
      stirling.fill_route's choice at each, which must be within 1.1x of
-     the faster.
+     the faster;
+  9. the ARS Gibbs path: run_gibbs with GibbsConfig(kernel="ars") at the
+     gate's configuration, seed 7, against the same reference moments and
+     bands as phase 4, with K1's launch count, the share of ARS calls'
+     chains that gave up (must be 0), the mean density evaluations per
+     chain per ARS call, the run's grid against the f64 plain fill, and
+     the time of a sample_b / sample_a call by either kernel;
+ 10. the hyperparameter layer on a single table, every table and grid it
+     fills held to its plain-f64 version at its own shape: (a)
+     sample_table_config on a make(2048, 64) table (K3): table and
+     customer totals per chain equal the closed forms exactly; (b)
+     sample_table_config and sample_a_m on a make(64, 12) table (K3) and
+     on a discount grid that holds the table's discount as a node, under
+     the same draws: equal histograms and equal a in all but at most 2
+     of 64 chains; (c) ti_sweep_blocked on a StirlingTable (K2) and on
+     such a grid: E[T_j] within 3 combined SE + 0.05; (d)
+     special.digamma, trigamma and digamma_inv at 10^6 points on [0.01,
+     10^4] against torch.special, and data_curve_sparse against
+     data_curve at 2^18 + 5 pairs.
 
-The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with each kernel's launches
+(summed over the paths of phases 3, 7, 9 and 10, each driven with the
+counts set to 0 just before it; "launches_by_path" splits them), error
+and times; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import io
@@ -61,6 +84,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GATE_REF = os.path.join(ROOT, "tests", "data", "torch_gate_ref.json")
+# the ARS run of phase 9: one of the gate's seeds at half the gate's depth (an
+# ARS iteration costs 44-51 ms on an H100, 2000 of them ~100 s)
+ARS_SEED, ARS_ITERS = "7", 1000
+# phase 10a: chains, pairs, the largest count + 1 and table count + 1
+CONFIG_SHAPE = (64, 512, 2000, 41)
+SPECIAL_POINTS = 10 ** 6
 BENCH_SHAPE = (64, 1 << 14, 1024)      # bench.py:77, the headline grid fill
 # The least time for a fill: its tables written once (2 cells' bytes a
 # cell) at the H100 SXM's 3.35 TB/s, or its f64 work at 34 TFLOP/s (f64
@@ -100,6 +129,22 @@ def done(t0, msg=""):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def reset_launches(sc):
+    for name in sc.LAUNCHES:
+        sc.LAUNCHES[name] = 0
+
+
+def host_ms(fn, reps):
+    """Mean host-clock time of ``fn`` in ms over ``reps`` calls, the
+    device drained before the first and after the last."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def cuda_ms(fn, reps):
@@ -155,6 +200,21 @@ def fill_errors(v, s, v64, s64):
     return tuple(max(e[i] for e in errs) for i in range(3))
 
 
+def check_grid(sc, grid, what):
+    """A grid that a path filled with K1, held to the f64 plain fill at its
+    own (G, n, m): V within 2e-5 relative and |dSrel| / max(1, |Srel|) <
+    1e-4 in f32, 1e-12 and 1e-10 in f64.  Returns the two errors."""
+    v_tol, s_tol = ((2e-5, 1e-4) if grid.srel.dtype == torch.float32
+                    else (1e-12, 1e-10))
+    v64, s64 = sc.fill_grid_ref(grid.avec.double(), grid.n_max, grid.m_max)
+    e_v, _, _ = fill_errors(grid.vtab, grid.srel, v64, s64)
+    e_s = max(scaled_err(grid.srel[g], s64[g]) for g in range(grid.g_max))
+    check(e_v < v_tol and e_s < s_tol,
+          f"{what}: K1 {grid.srel.dtype} at {tuple(grid.srel.shape)}: V rel "
+          f"{e_v:.3g} (< {v_tol}), scaled |dSrel| {e_s:.3g} (< {s_tol})")
+    return e_v, e_s
+
+
 def scaled_err(s, s64):
     """max |dSrel| / max(1, |Srel|) over the finite cells."""
     fin = torch.isfinite(s64)
@@ -177,6 +237,11 @@ NARROW_CASES = [(0.4321, 20, 1), (0.4321, 33, 1), (0.0, 700, 1),
 CHUNK_EDGES = [(0.37, n, m) for m in (1, 2, 40) for n in (511, 513, 1500)]
 # past K3's resident capacity: 2^21 rows make 228 chunks on 132 SMs
 WAVES_SHAPE = (1 << 21, 16)
+# an S-only table (build_v=False) on K3's side of the route
+S_ONLY = (65535, 1024)
+# K1 past 8192 columns: a square grid table, and a last tile of one column
+WIDE_SHAPE = (2, 12288, 12288)
+WIDE_RAGGED = (2, 600, 8193)
 
 
 def phase5_k2(dev, sc, stirling, card, roof):
@@ -349,8 +414,12 @@ def plain_table(stirling, t, n, m, a, dev):
         use_asympt=t.use_asympt, a_pos=a > 0)
 
 
-def check_queries(t, ref, n, m, what):
-    """Every query of ``t`` (f32) against the plain-f64 ``ref`` at the
+QUERY_BOUNDS = {"S": (1e-6, 5e-2), "Srel": (0.0, 5e-2), "V": (1e-4, 0.0),
+                "U": (1e-4, 0.0), "UV": (1e-4, 0.0), "S1": (1e-6, 5e-2)}
+
+
+def check_queries(t, ref, n, m, what, queries=tuple(QUERY_BOUNDS)):
+    """The ``queries`` of ``t`` (f32) against the plain-f64 ``ref`` at the
     points (n, m): same -inf / 0 pattern; S, S1 within 1e-6 relative +
     5e-2 (one f32 rounding of log S); Srel within 5e-2; V, U, UV within
     1e-4 relative."""
@@ -358,9 +427,8 @@ def check_queries(t, ref, n, m, what):
     n = torch.as_tensor(n, device=dev)
     m = torch.as_tensor(m, device=dev)
     worst = {}
-    for q, rtol, atol in (("S", 1e-6, 5e-2), ("Srel", 0.0, 5e-2),
-                          ("V", 1e-4, 0.0), ("U", 1e-4, 0.0),
-                          ("UV", 1e-4, 0.0), ("S1", 1e-6, 5e-2)):
+    for q in queries:
+        rtol, atol = QUERY_BOUNDS[q]
         args = (n,) if q == "S1" else (n, m)
         got = getattr(t, q)(*args).double()
         want = getattr(ref, q)(*args)
@@ -391,8 +459,7 @@ def phase7_table(dev, sc, stirling, card):
         return fill_rows(*args, **kw)
 
     rng = np.random.default_rng(0)
-    for name in sc.LAUNCHES:
-        sc.LAUNCHES[name] = 0
+    reset_launches(sc)
     stirling.fill_rows = counted
     try:
         t_run = time.perf_counter()
@@ -417,6 +484,13 @@ def phase7_table(dev, sc, stirling, card):
         with contextlib.redirect_stdout(buf):
             list_torch.main(["--device", "cuda", "--asymptote"])
         torch.cuda.synchronize()
+        before = dict(sc.LAUNCHES)
+        t_run = time.perf_counter()
+        t_s = stirling.make(*S_ONLY, 10 ** 6, 10 ** 4, 0.5, build_v=False,
+                            use_asympt=True, device=dev)
+        torch.cuda.synchronize()
+        s_only_s = time.perf_counter() - t_run
+        s_only = {k: sc.LAUNCHES[k] - before[k] for k in before}
     finally:
         stirling.fill_rows = fill_rows
     launches = dict(sc.LAUNCHES)
@@ -469,6 +543,24 @@ def phase7_table(dev, sc, stirling, card):
     refw = plain_table(stirling, tw, 1000, 300, 0.5, dev)
     ww = check_queries(tw, refw, rng.integers(1, 1001, 300),
                        rng.integers(1, 301, 300), "make (1000, 300)")
+    # an S-only table on K3's side of the route takes K3 and keeps no V
+    check(s_only == {"fill_grid": 0, "fill_table": 0, "fill_table_cols": 1},
+          f"make{S_ONLY}, build_v=False launched {s_only}")
+    check(t_s.cols and t_s.vtab is None and t_s.srel is not None,
+          f"S-only make: {t_s.report()}")
+    refs = plain_table(stirling, t_s, *S_ONLY, 0.5, dev)
+    ns_ = np.concatenate([[65535, 65535, 4096, 200], rng.integers(
+        1, S_ONLY[0] + 1, 300), rng.integers(S_ONLY[0] + 1, 10 ** 6, 20)])
+    ms_ = np.concatenate([[1024, 2, 1000, 43], rng.integers(1, 1025, 320)])
+    ms_[4:24] = ns_[4:24] % 1025
+    ws = check_queries(t_s, refs, ns_, ms_, "S-only make",
+                       queries=("S", "Srel", "S1"))
+    check(float(t_s.V(200, 43)) == 0.0, "S-only make: V is not 0")
+    del refs
+    torch.cuda.empty_cache()
+    print(f"   S-only make{S_ONLY}: launches {s_only}, {s_only_s:.4f} s "
+          f"(host clock, incl. S1), worst error / bound "
+          f"{max(ws.values()):.3g}")
     print(f"   make {make_s:.3f} s, ensure to {t2.n_max} x {t2.m_max} "
           f"{ensure_s:.3f} s (host clock, incl. S1); worst error / bound: "
           f"make {max(w1.values()):.3g}, ensure {max(w2.values()):.3g}, "
@@ -496,6 +588,370 @@ def phase8_crossover(dev, sc, stirling, card):
     done(t0)
 
 
+def phase2d_wide(dev, sc, agrid, card):
+    """K1 past 8192 columns, through make_grid, against the f64 plain
+    fill under the bench-shape bounds."""
+    G, N, M = WIDE_SHAPE
+    t0 = phase(f"2d K1 past 8192 columns: make_grid at {WIDE_SHAPE}, and "
+               f"{WIDE_RAGGED}")
+    before = sc.LAUNCHES["fill_grid"]
+    grid = agrid.make_grid(N, M, g=G, a_lo=0.25, a_hi=0.75, device=dev)
+    torch.cuda.synchronize()
+    check(sc.LAUNCHES["fill_grid"] == before + 1,
+          "make_grid did not launch K1 once")
+    check(tuple(grid.vtab.shape) == WIDE_SHAPE, "wide grid shape")
+    v64, s64 = sc.fill_grid_ref(grid.avec.double(), N, M)
+    v_rel, s_abs, _ = fill_errors(grid.vtab, grid.srel, v64, s64)
+    del v64, s64
+    k_ms = cuda_ms(lambda: sc.fill_grid_cuda(grid.avec, N, M), 3)
+    b_ms, b_by = bound(G * N * M, 4)
+    print(f"   {WIDE_SHAPE} f32: V max rel err {v_rel:.6g}, max |dSrel| "
+          f"{s_abs:.6g}; K1 {k_ms:.4f} ms (median of 3) = "
+          f"{100 * b_ms / k_ms:.2f}% of its bound {b_ms:.4f} ms ({b_by}) "
+          f"[{card}]")
+    check(v_rel < 1e-4 and s_abs <= 5e-2,
+          f"K1 at {WIDE_SHAPE}: V rel {v_rel:.3g} (< 1e-4), |dSrel| "
+          f"{s_abs:.3g} (<= 5e-2)")
+    del grid
+    torch.cuda.empty_cache()
+    G, N, M = WIDE_RAGGED
+    avec = torch.linspace(0.0, 0.9, G, dtype=torch.float64, device=dev)
+    e64 = sc.fill_grid_ref(avec, N, M)
+    for dt, v_tol, s_tol in ((torch.float32, 2e-5, 1e-4),
+                             (torch.float64, 1e-12, 1e-10)):
+        v, s = sc.fill_grid_cuda(avec.to(dt), N, M)
+        e_v, _, _ = fill_errors(v, s, *e64)
+        e_s = max(scaled_err(s[g], e64[1][g]) for g in range(G))
+        check(e_v < v_tol and e_s < s_tol,
+              f"K1 {dt} at {WIDE_RAGGED}: V rel {e_v:.3g}, scaled |dSrel| "
+              f"{e_s:.3g}")
+    done(t0)
+
+
+def gate_seed(dev, agrid, driver, pyp, ref, seed, cfg):
+    """One seed of the gate: run_gibbs (f32, on the card) at the reference's
+    configuration against its CPU-f64 posterior moments, within 2 combined
+    MC-SE plus the floors 0.05 / 0.01 / 0.05.  Returns (all moments inside
+    their bands, run_gibbs wall seconds, the run's output)."""
+    r = ref["seeds"][seed]
+    data = pyp.crp_generate(int(seed), *ref["data_args"])
+    check(np.array_equal(data.n, np.asarray(r["n"])),
+          f"seed {seed}: crp_generate differs from the reference data")
+    n_max = max(int(data.N.max()) + 2, 16)
+    grid = agrid.make_grid(n_max, n_max, g=ref["grid_g"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(seed) + 1)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    out = driver.run_gibbs(gen, data, grid, ref["chains"], ref["a0"],
+                           ref["b0"], cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    ours = dict(T=out["Tave"].double().cpu().numpy(),
+                a=out["aave"].double().cpu().numpy()[:, None],
+                b=out["bave"].double().cpu().numpy()[:, None])
+    ok = True
+    for name, floor in (("T", 0.05), ("a", 0.01), ("b", 0.05)):
+        vals = ours[name]
+        om = vals.mean(0)
+        osd = vals.std(0, ddof=1) / np.sqrt(len(vals))
+        rm = np.asarray(r[name]["mean"])
+        rs = np.asarray(r[name]["se"])
+        band = 2 * np.sqrt(rs ** 2 + osd ** 2) + floor
+        good = bool(np.all(np.abs(rm - om) <= band))
+        ok &= good
+        print(f"   seed {seed} E[{name}]: ref={np.round(rm, 4)} "
+              f"ours={np.round(om, 4)} band={np.round(band, 4)} -> "
+              f"{'OK' if good else 'MISMATCH'}")
+    out["grid"], out["data"] = grid, data
+    return ok, run_s, out
+
+
+def phase9_ars(dev, sc, agrid, driver, pyp, card, ref, slice_s):
+    """The ARS Gibbs path on the card; returns the kernels' launches."""
+    from libstb_tpu_torch.samplers import ars, hyper
+
+    t0 = phase(f"9 ARS Gibbs path: run_gibbs(kernel=\"ars\"), seed "
+               f"{ARS_SEED}, {ARS_ITERS} iterations, vs the JAX CPU-f64 "
+               "moments")
+    cfg = driver.GibbsConfig(**dict(ref["config"], iters=ARS_ITERS,
+                                    kernel="ars"))
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = dict(calls=0, chains=zero, gave_up=zero, neval=zero)
+    ars_sample = ars.ars_sample
+
+    def counted(*args, with_info=False, **kw):
+        x, ok, nev = ars_sample(*args, with_info=True, **kw)
+        stats["calls"] += 1
+        stats["chains"] = stats["chains"] + ok.numel()
+        stats["gave_up"] = stats["gave_up"] + (~ok).sum()
+        stats["neval"] = stats["neval"] + nev.sum()
+        return (x, ok, nev) if with_info else (x, ok)
+
+    reset_launches(sc)
+    ars.ars_sample = counted
+    try:
+        ok, run_s, out = gate_seed(dev, agrid, driver, pyp, ref, ARS_SEED,
+                                   cfg)
+    finally:
+        ars.ars_sample = ars_sample
+    launches = dict(sc.LAUNCHES)
+    check(ok, "ARS run: a posterior moment is outside its band")
+    check(launches["fill_grid"] >= 1, "the ARS run did not launch K1")
+    e_v, e_s = check_grid(sc, out["grid"], "the ARS run's grid")
+    print(f"   the run's grid {tuple(out['grid'].srel.shape)} vs the f64 "
+          f"plain fill: V rel {e_v:.3g}, scaled |dSrel| {e_s:.3g}")
+    chains, gave_up, neval = (int(stats[k]) for k in ("chains", "gave_up",
+                                                      "neval"))
+    check(stats["calls"] == -(-cfg.iters // cfg.bcycle)
+          + -(-cfg.iters // cfg.acycle),
+          f"ARS calls {stats['calls']}: sample_a / sample_b did not both "
+          "go through ars_sample")
+    check(gave_up == 0, f"{gave_up} of {chains} ARS draws hit the reject cap")
+    print(f"   run_gibbs wall {run_s:.3f} s = {1e3 * run_s / cfg.iters:.2f} "
+          f"ms an iteration (slice kernel, phase 4: "
+          f"{np.round(slice_s, 3).tolist()} s a seed of "
+          f"{ref['config']['iters']} iterations); launches {launches}; "
+          f"{stats['calls']} ARS calls, {gave_up} of {chains} draws gave "
+          f"up, {neval / chains:.3f} density evaluations a draw [{card}]")
+
+    # one (a, b) move by either kernel on the run's final state, as the
+    # driver calls them
+    grid, data = out["grid"], out["data"]
+    C = ref["chains"]
+    dt = grid.srel.dtype
+    t, T, a, b = out["t"], out["T"], out["a"], out["b"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ns_flat = torch.as_tensor(data.n.reshape(-1), device=dev)
+    N_b = torch.as_tensor(data.N[: cfg.b_groups], dtype=dt, device=dev)
+    for kernel in ("slice", "ars"):
+        b_ms = host_ms(lambda: hyper.sample_b(
+            gen, b, N_b, T[:, : cfg.b_groups].to(dt), a, cfg.shape, cfg.scale,
+            kernel=kernel), 20)
+        a_ms = host_ms(lambda: hyper.sample_a(
+            gen, a, grid, ns_flat, t.reshape(C, -1), T.to(dt),
+            b[:, None].expand(T.shape), kernel=kernel), 20)
+        print(f"   kernel={kernel}: sample_b {b_ms:.3f} ms, sample_a "
+              f"{a_ms:.3f} ms a call (host clock, mean of 20) [{card}]")
+    done(t0)
+    return launches
+
+
+def config_totals(ns, ts):
+    """(customers, tables) a table configuration of the pairs (ns, ts)
+    holds, per chain: pairs with 1 < t < n seat all n customers at t
+    tables, t == 1 pairs seat n at one, t == n pairs (all singletons) are
+    left out."""
+    active = (ts > 1) & (ts < ns)
+    one = ts == 1
+    return ((ns * (active | one)).sum(1),
+            (ts * active).sum(1) + one.sum(1))
+
+
+def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
+    """The hyperparameter layer on a single table; returns the kernels'
+    launches."""
+    from libstb_tpu_torch.core import special
+    from libstb_tpu_torch.samplers import hyper
+
+    reset_launches(sc)
+    C, P, max_n, max_t = CONFIG_SHAPE
+    t0 = phase(f"10a sample_table_config on make(2048, 64) (K3): {C} chains "
+               f"x {P} pairs, n < {max_n}, t < {max_t}")
+    r = np.random.default_rng(10)
+    tab = stirling.make(2048, 64, 2048, 64, 0.5, device=dev)
+    check(tab.cols and sc.LAUNCHES["fill_table_cols"] == 1,
+          f"make(2048, 64) did not take K3: {tab.report()}")
+    worst = check_queries(
+        tab, plain_table(stirling, tab, 2048, 64, 0.5, dev),
+        np.concatenate([[2048, 2048, 64], r.integers(1, 2049, 400)]),
+        np.concatenate([[64, 1, 64], r.integers(1, 65, 400)]),
+        "make(2048, 64)")
+    ns = torch.as_tensor(r.integers(1, max_n, (C, P)), device=dev)
+    ts = torch.minimum(torch.as_tensor(r.integers(1, max_t, (C, P)),
+                                       device=dev), ns)
+    a = torch.full((C,), 0.5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    hist = hyper.sample_table_config(gen, tab, ns, ts, a, max_t, max_n)
+    torch.cuda.synchronize()
+    cfg_ms = (time.perf_counter() - t_run) * 1e3
+    want_n, want_t = config_totals(ns, ts)
+    sizes = torch.arange(max_n + 1, device=dev, dtype=torch.float64)
+    got_n = (hist.double() * sizes).sum(1)
+    got_t = hist.double().sum(1)
+    check(bool((got_n == want_n).all() and (got_t == want_t).all()),
+          "sample_table_config: customer or table totals differ from the "
+          "closed forms")
+    check(bool((hist >= 0).all() and (hist == hist.round()).all()),
+          "sample_table_config: counts are not whole numbers")
+    print(f"   {int(want_t.sum())} tables seating {int(want_n.sum())} "
+          f"customers, totals exact in all {C} chains; one call "
+          f"{cfg_ms:.1f} ms (host clock, {max_t - 1} peel steps); the table's "
+          f"worst query error / bound {max(worst.values()):.3g} [{card}]")
+    del hist, ns, ts
+    done(t0)
+
+    t0 = phase("10b sample_table_config and sample_a_m on make(64, 12) "
+               "(K3) vs on a grid with its discount as a node, same draws")
+    r = np.random.default_rng(3)
+    C, P = 64, 16
+    ns_h = r.integers(2, 25, (C, P))
+    ts_h = np.maximum(1, (ns_h * 0.4).astype(np.int64))
+    ns = torch.as_tensor(ns_h, device=dev)
+    ts = torch.as_tensor(ts_h, device=dev)
+    T = torch.as_tensor(ts_h.sum(1, keepdims=True), dtype=torch.float32,
+                        device=dev)
+    b = torch.full((C, 1), 5.0, device=dev)
+    k3 = sc.LAUNCHES["fill_table_cols"]
+    tab = stirling.make(64, 12, 64, 12, 0.5, device=dev)
+    check(tab.cols and sc.LAUNCHES["fill_table_cols"] == k3 + 1,
+          f"make(64, 12) did not take K3: {tab.report()}")
+    worst = check_queries(tab, plain_table(stirling, tab, 64, 12, 0.5, dev),
+                          r.integers(1, 65, 300), r.integers(1, 13, 300),
+                          "make(64, 12)")
+    grid = agrid.make_grid(64, 12, g=100, device=dev)
+    node = int(torch.argmin((grid.avec - 0.5).abs()))
+    check(abs(float(grid.avec[node]) - 0.5) < 1e-6,
+          "the grid has no node at a = 0.5")
+    e_v, e_s = check_grid(sc, grid, "phase 10b")
+    # the two tables hold one discount's S to f32 rounding, so under one
+    # seed the Gumbel-max draws pick the same sizes but for a tie within
+    # that rounding (~1e-6 of ~10^4 draws): at most 2 chains may differ
+    a = torch.full((C,), 0.5, device=dev)
+    hists, moves = [], []
+    for table in (tab, grid):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        hists.append(hyper.sample_table_config(gen, table, ns, ts, a, 12, 32))
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x, ok = hyper.sample_a_m(gen, a, table, ns, ts, T, b, max_t=12,
+                                 max_n=32)
+        check(bool(ok.all()), "sample_a_m: a slice move gave up")
+        moves.append(x)
+    h_diff = int((hists[0] != hists[1]).any(1).sum())
+    a_diff = int(((moves[0] - moves[1]).abs() > 1e-6).sum())
+    check(bool((moves[0] != 0.5).any()), "sample_a_m did not move a")
+    print(f"   chains whose histogram differs {h_diff}, whose a differs "
+          f"{a_diff}, of {C} (at most 2 each); E[a] after the move "
+          f"{float(moves[0].mean()):.4f}; make(64, 12) worst query error / "
+          f"bound {max(worst.values()):.3g}; grid V rel {e_v:.3g}, scaled "
+          f"|dSrel| {e_s:.3g}")
+    check(h_diff <= 2 and a_diff <= 2,
+          "the config route on the K3 table and on the grid disagree under "
+          "the same draws")
+    done(t0)
+
+    t0 = phase("10c ti_sweep_blocked on a StirlingTable (K2) vs on a grid "
+               "with its discount as a node")
+    data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
+    n_req = int(data.n.max()) + 2
+    k2 = sc.LAUNCHES["fill_table"]
+    tab = stirling.make(n_req, n_req, n_req, n_req, 0.5, device=dev)
+    check(not tab.cols and sc.LAUNCHES["fill_table"] == k2 + 1,
+          f"make({n_req}, {n_req}) did not take K2: {tab.report()}")
+    r = np.random.default_rng(12)
+    worst = check_queries(
+        tab, plain_table(stirling, tab, tab.n_max, tab.m_max, 0.5, dev),
+        r.integers(1, tab.n_max + 1, 300), r.integers(1, tab.m_max + 1, 300),
+        f"make({n_req}, {n_req})")
+    grid = agrid.make_grid(n_req, n_req, g=100, device=dev)
+    e_v, e_s = check_grid(sc, grid, "phase 10c")
+    print(f"   make({n_req}, {n_req}) worst query error / bound "
+          f"{max(worst.values()):.3g}; grid {tuple(grid.srel.shape)} V rel "
+          f"{e_v:.3g}, scaled |dSrel| {e_s:.3g}")
+    node = int(torch.argmin((grid.avec - 0.5).abs()))
+    check(abs(float(grid.avec[node]) - 0.5) < 1e-6,
+          "the grid has no node at a = 0.5")
+    C, sweeps, burn = 256, 120, 40
+    a = torch.full((C,), 0.5, device=dev)
+    b = torch.full((C,), 10.0, device=dev)
+    occ = torch.as_tensor((data.n > 0).sum(axis=1), device=dev)
+    tot = torch.as_tensor(data.N, device=dev)
+    means = {}
+    for seed, name, table in ((12, "table", tab), (13, "grid", grid)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        plan = pyp.ti_plan(data, pyp.ti_schedule(data, "group"), dev)
+        t, T = pyp.init_state(data, C, dev)
+        acc = torch.zeros(T.shape, dtype=torch.float64, device=dev)
+        for it in range(sweeps):
+            t, T = pyp.ti_sweep_blocked(gen, t, T, a, b, table, data,
+                                        sched=plan)
+            check(bool(((T >= occ) & (T <= tot)).all()),
+                  f"{name}: T_j outside [occupied categories, N_j]")
+            if it >= burn:
+                acc += T
+        check(bool((t.sum(-1) == T).all()), f"{name}: sum_i t_ji != T_j")
+        means[name] = (acc / (sweeps - burn)).cpu().numpy()
+    mt, mg = means["table"], means["grid"]
+    se = np.sqrt(mt.var(0, ddof=1) / C + mg.var(0, ddof=1) / C)
+    diff = np.abs(mt.mean(0) - mg.mean(0))
+    print(f"   E[T_j]: table {np.round(mt.mean(0), 3).tolist()}, grid "
+          f"{np.round(mg.mean(0), 3).tolist()}, |diff| "
+          f"{np.round(diff, 3).tolist()} vs 3 SE + 0.05 = "
+          f"{np.round(3 * se + 0.05, 3).tolist()}")
+    check(bool(np.all(diff <= 3 * se + 0.05)),
+          "the sweep on the single table and on the grid disagree on E[T_j]")
+    done(t0)
+
+    t0 = phase(f"10d special functions at {SPECIAL_POINTS} points; "
+               "data_curve_sparse at 2^18 + 5 pairs")
+    x64 = torch.exp(torch.empty(SPECIAL_POINTS, dtype=torch.float64, device=dev)
+                    .uniform_(np.log(0.01), np.log(1e4),
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(13)))
+    # f64 to 2e-9 relative (torch.special's own f64 polygamma series is
+    # good to ~5e-10), f32 to 2e-5, which is what the series gives in f32;
+    # + 1e-12 / 2e-5 absolute for digamma beside its root at 1.4616
+    for dt, rtol, atol in ((torch.float64, 2e-9, 1e-12),
+                           (torch.float32, 2e-5, 2e-5)):
+        x = x64.to(dt)
+        ref_in = x.double()                  # the point the f32 call saw
+        for name in ("digamma", "trigamma"):
+            got = getattr(special, name)(x)
+            check(got.dtype == dt, f"special.{name} changed the dtype")
+            ref = (torch.special.digamma(ref_in) if name == "digamma"
+                   else torch.special.polygamma(1, ref_in))
+            err = ((got.double() - ref).abs()
+                   / (rtol * ref.abs() + (atol if name == "digamma"
+                                          else 0.0))).max().item()
+            print(f"   special.{name} {dt}: worst error / bound {err:.3g}")
+            check(err <= 1.0, f"special.{name} {dt} off by {err:.3g} x its "
+                  "bound")
+        # digamma_inv: psi(digamma_inv(y)) = y, to 1e-10 / 1e-5 of 1 + |y|
+        y = torch.special.digamma(x64).to(dt)
+        back = torch.special.digamma(special.digamma_inv(y).double())
+        tol = 1e-10 if dt == torch.float64 else 1e-5
+        err = ((back - y.double()).abs() / (tol * (1 + y.double().abs()))
+               ).max().item()
+        print(f"   special.digamma_inv {dt}: worst error / bound {err:.3g}")
+        check(err <= 1.0, f"special.digamma_inv {dt} off by {err:.3g} x its "
+              "bound")
+    x32 = x64.float()
+    print(f"   digamma at {SPECIAL_POINTS} f32 points: special "
+          f"{cuda_ms(lambda: special.digamma(x32), 5):.4f} ms, "
+          f"torch.special {cuda_ms(lambda: torch.special.digamma(x32), 5):.4f}"
+          f" ms (CUDA events, median of 5) [{card}]")
+    del x64, x32
+    r = np.random.default_rng(14)
+    P = (1 << 18) + 5
+    ns = torch.as_tensor(r.integers(0, 65, P), device=dev)
+    ts = torch.minimum(torch.as_tensor(r.integers(0, 65, (4, P)),
+                                       device=dev), ns.clamp(min=1))
+    # the chunked sum regroups 262149 terms: f32 to 1e-4, f64 to 1e-10
+    for dt, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        g = agrid.make_grid(64, 64, g=32, dtype=dt, device=dev)
+        check_grid(sc, g, "phase 10d")
+        dense = g.data_curve(ns, ts)
+        sparse = g.data_curve_sparse(ns, ts, chunk=50000)
+        check(sparse.shape == dense.shape == (4, 32), "curve shape")
+        err = ((sparse - dense).abs() / dense.abs()).max().item()
+        print(f"   data_curve_sparse vs data_curve {dt}: max rel diff "
+              f"{err:.3g}")
+        check(err < rtol, f"data_curve_sparse {dt} off by {err:.3g}")
+    done(t0)
+    return dict(sc.LAUNCHES)
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -515,6 +971,7 @@ def main():
     from libstb_tpu_torch.models import driver, pyp
     from libstb_tpu_torch.ops import stirling_cuda as sc
     done(t0)
+    paths = {}                 # launches of each main path, by phase
 
     t0 = phase("1 build K1, K2, K3")
     sc.build_all()
@@ -592,9 +1049,10 @@ def main():
           f"{p_ms:.1f} ms [{card}]")
     done(t0)
 
+    phase2d_wide(dev, sc, agrid, card)
+
     t0 = phase("3 main path: make_grid + run_gibbs (1024 chains x 500)")
-    for name in sc.LAUNCHES:
-        sc.LAUNCHES[name] = 0
+    reset_launches(sc)
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
     cfg = driver.GibbsConfig(iters=500, bcycle=2, acycle=5)
@@ -603,7 +1061,8 @@ def main():
                            grid, 1024, 0.5, 10.0, cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = sc.LAUNCHES["fill_grid"]
+    paths["3"] = dict(sc.LAUNCHES)
+    launches = paths["3"]["fill_grid"]
     check(launches >= 1, "the main path did not launch K1")
     for k in ("tave", "Tave", "aave", "bave", "t", "T", "a", "b"):
         check(bool(torch.isfinite(out[k].double()).all()), f"{k} not finite")
@@ -626,32 +1085,12 @@ def main():
         ref = json.load(f)
     cfg = driver.GibbsConfig(**ref["config"])
     ok = True
-    for name in sc.LAUNCHES:
-        sc.LAUNCHES[name] = 0
-    for seed, r in ref["seeds"].items():
-        data = pyp.crp_generate(int(seed), *ref["data_args"])
-        check(np.array_equal(data.n, np.asarray(r["n"])),
-              f"seed {seed}: crp_generate differs from the reference data")
-        n_max = max(int(data.N.max()) + 2, 16)
-        grid = agrid.make_grid(n_max, n_max, g=ref["grid_g"], device=dev)
-        gen = torch.Generator(device=dev).manual_seed(int(seed) + 1)
-        out = driver.run_gibbs(gen, data, grid, ref["chains"], ref["a0"],
-                               ref["b0"], cfg)
-        ours = dict(T=out["Tave"].double().cpu().numpy(),
-                    a=out["aave"].double().cpu().numpy()[:, None],
-                    b=out["bave"].double().cpu().numpy()[:, None])
-        for name, floor in (("T", 0.05), ("a", 0.01), ("b", 0.05)):
-            vals = ours[name]
-            om = vals.mean(0)
-            osd = vals.std(0, ddof=1) / np.sqrt(len(vals))
-            rm = np.asarray(r[name]["mean"])
-            rs = np.asarray(r[name]["se"])
-            band = 2 * np.sqrt(rs ** 2 + osd ** 2) + floor
-            good = bool(np.all(np.abs(rm - om) <= band))
-            ok &= good
-            print(f"   seed {seed} E[{name}]: ref={np.round(rm, 4)} "
-                  f"ours={np.round(om, 4)} band={np.round(band, 4)} -> "
-                  f"{'OK' if good else 'MISMATCH'}")
+    reset_launches(sc)
+    slice_s = []
+    for seed in ref["seeds"]:
+        good, run_s, _ = gate_seed(dev, agrid, driver, pyp, ref, seed, cfg)
+        ok &= good
+        slice_s.append(run_s)
     check(ok, "gate: a posterior moment is outside its band")
     gate_launches = dict(sc.LAUNCHES)
     print(f"   launches in the gate: {gate_launches}")
@@ -660,15 +1099,30 @@ def main():
 
     k2 = phase5_k2(dev, sc, stirling, card, roof)
     k3 = phase6_k3(dev, sc, stirling, card, roof)
-    table_launches = phase7_table(dev, sc, stirling, card)
+    paths["7"] = phase7_table(dev, sc, stirling, card)
     phase8_crossover(dev, sc, stirling, card)
+    paths["9"] = phase9_ars(dev, sc, agrid, driver, pyp, card, ref, slice_s)
+    paths["10"] = phase10_hyper(dev, sc, agrid, stirling, pyp, card)
+    # every kernel of a path was launched in that path's own run
+    for path, names in (("3", ["fill_grid"]),
+                        ("7", ["fill_table", "fill_table_cols"]),
+                        ("9", ["fill_grid"]),
+                        ("10", ["fill_table", "fill_table_cols"])):
+        for name in names:
+            check(paths[path][name] >= 1,
+                  f"phase {path} did not launch {name}")
+
+    def path_launches(name):
+        by_path = {p: c[name] for p, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     print(json.dumps({"kernels": [{
         "name": "fill_grid",
         "route": "cuda",
         "source": "libstb_tpu_torch/csrc/fill_grid.cu",
         "replaces": "libstb_tpu/ops/stirling_pallas.py:71",
-        "launches": launches,
+        **path_launches("fill_grid"),
         "max_abs_err": max_abs,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -680,14 +1134,14 @@ def main():
         "route": "cuda",
         "source": "libstb_tpu_torch/csrc/fill_table.cu",
         "replaces": "libstb_tpu/ops/stirling_pallas.py:293",
-        "launches": table_launches["fill_table"],
+        **path_launches("fill_table"),
         **k2,
     }, {
         "name": "fill_table_cols",
         "route": "cuda",
         "source": "libstb_tpu_torch/csrc/fill_table_cols.cu",
         "replaces": "libstb_tpu/ops/stirling_pallas.py:652",
-        "launches": table_launches["fill_table_cols"],
+        **path_launches("fill_table_cols"),
         **k3,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 
 Generates data by CRP simulation, runs the table-indicator sampler with
 optional (b, a) resampling cycles, and reports posterior mean table
-counts (demo.c:284-311 data gen, 405-489 loop, 507-519 report).  Only the
-TI sampler and the slice kernel are ported; the others raise.
+counts (demo.c:284-311 data gen, 405-489 loop, 507-519 report).  The
+(a, b) moves take the sampler config's 1-D kernel, slice or ARS.  Only
+the TI sampler is ported; the others raise.
 
   python cli/demo_torch.py -C 200 -H 2 -I 5
 """

@@ -9,8 +9,9 @@ kernel on a GPU, the plain fill on the CPU (ops/stirling_cuda.fill_grid).
 ``data_curve`` always takes the gather route; the JAX package's one-hot
 matmul route (``_data_curve_mm``) exists for the TPU's matrix unit and
 tests/test_torch_agrid.py holds the gather route equal to both JAX
-routes.  The streaming ``data_curve_sparse`` and the sharded fill
-(``mesh``) are not ported yet (ROADMAP Queue 1, items 8 and 11).
+routes; ``data_curve_sparse`` streams the same reduction over the pairs in
+chunks.  The sharded fill (``mesh``) is not ported yet (ROADMAP Queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -244,6 +245,26 @@ class AGridTable:
         w = mask.to(dt) if weights is None else weights * mask
         out = torch.sum(vals * w, dim=-1)         # (G, ...) summed over pairs
         return torch.movedim(out, 0, -1)          # (..., G)
+
+    def data_curve_sparse(self, ns, ts, weights=None, chunk: int = 65536):
+        """Streaming data_curve (the ``getval`` capability,
+        psample.h:101-115): the same reduction taken over the pair axis
+        ``chunk`` pairs at a time, so sample_a handles 10^6 occupied pairs
+        without a (G, C, P) intermediate -- peak memory is O(G * C *
+        chunk), the work that of data_curve.
+
+        ``ns``: (P,) counts; ``ts``: (P,) or (C, P) tables; the caller
+        passes OCCUPIED pairs only.  Returns data_curve's (..., G) curve."""
+        ns, ts = self._int(ns), self._int(ts)
+        lead = torch.broadcast_shapes(ns.shape, ts.shape)[:-1]
+        out = torch.zeros(lead + (self.g_max,), dtype=self.srel.dtype,
+                          device=self.device)
+        for p0 in range(0, ns.shape[-1], chunk):
+            seg = slice(p0, p0 + chunk)
+            out = out + self.data_curve(
+                ns[..., seg], ts[..., seg],
+                None if weights is None else weights[..., seg])
+        return out
 
     def curve_at(self, curve, a):
         """Cubic interpolation of a (..., G) curve (from data_curve) at a;

@@ -13,7 +13,8 @@ from typing import Iterable, Union
 import numpy as np
 import torch
 
-__all__ = ["generator", "uniform", "gamma", "loggamma", "Replay"]
+__all__ = ["generator", "uniform", "uniform_open", "gumbel", "gamma",
+           "loggamma", "Replay"]
 
 
 class Replay:
@@ -44,6 +45,25 @@ def uniform(gen: Gen, shape, dtype, device) -> torch.Tensor:
     if isinstance(gen, Replay):
         return gen.next(shape, dtype, device)
     return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+
+def uniform_open(gen: Gen, shape, dtype, device) -> torch.Tensor:
+    """Uniform[1e-12, 1): a uniform whose log is finite (the draws of the
+    ARS inverse-CDF and accept tests)."""
+    if isinstance(gen, Replay):
+        return gen.next(shape, dtype, device)
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return torch.clamp(1e-12 + (1.0 - 1e-12) * u, min=1e-12)
+
+
+def gumbel(gen: Gen, shape, dtype, device) -> torch.Tensor:
+    """Standard Gumbel, -log(-log U) with U kept off 0 (the Gumbel-max
+    categorical draws)."""
+    if isinstance(gen, Replay):
+        return gen.next(shape, dtype, device)
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return -torch.log(-torch.log(torch.clamp(
+        u, min=torch.finfo(dtype).tiny)))
 
 
 def gamma(gen: Gen, alpha: torch.Tensor) -> torch.Tensor:

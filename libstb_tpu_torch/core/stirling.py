@@ -388,7 +388,8 @@ class StirlingTable:
 
 # On a CUDA device a table takes the column-scan kernel K3 once it has at
 # least COLS_MIN_RATIO rows per column (up to stirling_cuda.COLS_MAX_N),
-# the row walk K2 below that.  The ratio is the crossover measured on an
+# the row walk K2 below that, whether or not V is kept: K3 computes V on
+# its way to Srel either way.  The ratio is the crossover measured on an
 # H100 (chip_smoke.py phase 8, tools/k3_compare_torch.py --crossover): K2
 # costs about one row step (~0.25 us) per row plus one per column (its
 # wavefront), K3 about 1.3-1.5 us, five row steps, per column below 2^16
@@ -400,9 +401,10 @@ COLS_MIN_RATIO = 4
 def fill_route(device, n: int, m: int, build_v: bool = True) -> str:
     """Which fill ``make`` runs for an (n, m) table on ``device``:
     "fill_rows" (the plain fill) on the CPU; on a CUDA device the kernel
-    "fill_table_cols" (K3) for COLS_MIN_RATIO * m <= n < 2^24 when V is
-    built, and for any table wider than K2 takes; otherwise "fill_table"
-    (K2).  The plain fill never runs on a CUDA device."""
+    "fill_table_cols" (K3) for COLS_MIN_RATIO * m <= n < 2^24, and for any
+    table wider than K2 takes; otherwise "fill_table" (K2).  ``build_v``
+    (whether the table keeps V) does not move the route.  The plain fill
+    never runs on a CUDA device."""
     from ..ops import stirling_cuda
 
     device = torch.device(device)
@@ -410,7 +412,7 @@ def fill_route(device, n: int, m: int, build_v: bool = True) -> str:
         return "fill_rows"
     if n < stirling_cuda.COLS_MAX_N and (
             m > stirling_cuda.TABLE_MAX_M
-            or (build_v and n >= COLS_MIN_RATIO * m)):
+            or n >= COLS_MIN_RATIO * m):
         return "fill_table_cols"
     return "fill_table"
 

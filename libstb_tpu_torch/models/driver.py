@@ -1,13 +1,14 @@
 """Gibbs-run driver: the main-loop analog of test/demo.c:405-519, batched
 over chains, in PyTorch.
 
-Port of the TI path of libstb_tpu/models/driver.py.  The JAX package
+Port of the TI path of libstb_tpu/models/driver.py, with either 1-D
+kernel (slice or ARS) for the (a, b) moves.  The JAX package
 compiles the whole run into one program (a lax.scan over iterations);
 here the iterations are a Python loop that enqueues each step's kernels
 on the device, and the host waits on the device only inside the slice
 sampler's per-try exit test.  Statistics accumulate on the device after
-burn-in.  CT/CTW/HSA, ARS, per-iteration traces and ``run_gibbs_timed``
-are not ported yet (ROADMAP Queue 1, items 6, 8 and 9).
+burn-in.  CT/CTW/HSA, per-iteration traces and ``run_gibbs_timed`` are
+not ported yet (ROADMAP Queue 1, items 6 and 9).
 """
 from __future__ import annotations
 
@@ -54,9 +55,6 @@ def _check_ported(cfg: GibbsConfig):
         raise NotImplementedError(
             f"sampler={cfg.sampler!r}: only TI is ported; CT/CTW/HSA are "
             "ROADMAP Queue 1, item 9")
-    if cfg.kernel != "slice":
-        raise NotImplementedError(
-            f"kernel={cfg.kernel!r}: ARS is ROADMAP Queue 1, item 8")
     if cfg.collect_traces:
         raise NotImplementedError(
             "collect_traces: traces, R-hat and ESS are ROADMAP Queue 1, "

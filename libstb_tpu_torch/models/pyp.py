@@ -5,23 +5,24 @@ docstring): the host-side numpy data generation (copied, so the port runs
 without JAX; tests/test_torch_pyp.py holds the copies array-equal to the
 originals) and the table-indicator sweeps, batched over chains.
 
-The sweeps read V(n, t+1; a) through the discount grid.  Within one sweep
-every query is V(n_p, m, a_c) for an occupied (group, category) pair p,
-m = 1..max n + 1 and the chain's current discount a_c, so the sweep
-evaluates those rows once (``AGridTable.V`` on the whole block, the same
-values elementwise) and each step gathers from them.  The uniforms of a
-sweep are drawn as one (steps, 2, chains, width) block.  The CT, CTW and
-HSA samplers and the pair-major sweeps are not ported yet (ROADMAP
-Queue 1, item 9).
+The sweeps read V(n, t+1; a) from a discount grid or from one discount's
+``StirlingTable`` (``_vq``).  Within one sweep every query is V(n_p, m,
+a_c) for an occupied (group, category) pair p, m = 1..max n + 1 and the
+chain's current discount a_c, so the sweep evaluates those rows once (the
+table's ``V`` on the whole block, the same values elementwise) and each
+step gathers from them; a single table's block is shared by the chains.
+The uniforms of a sweep are drawn as one (steps, 2, chains, width) block.
+The CT, CTW and HSA samplers and the pair-major sweeps are not ported yet
+(ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from ..core import agrid, rng
+from ..core import agrid, rng, stirling
 from ..utils import yaps
 
 _warned_cat_mode = False
@@ -29,6 +30,24 @@ _warned_cat_mode = False
 __all__ = ["PYPData", "TIPlan", "base_distribution", "crp_generate",
            "from_counts", "init_state", "item_schedule", "ti_plan",
            "ti_schedule", "ti_sweep", "ti_sweep_blocked"]
+
+
+Table = Union[agrid.AGridTable, stirling.StirlingTable]
+
+
+def _vq(tab: Table, n, m, a):
+    """V(n, m) at the chains' discounts ``a`` from a grid, or at the
+    table's own discount from a StirlingTable (``a`` is then unused)."""
+    if isinstance(tab, agrid.AGridTable):
+        return tab.V(n, m, a)
+    return tab.V(n, m)
+
+
+def _srelq(tab: Table, n, m, a):
+    """Srel(n, m), dispatched like ``_vq``."""
+    if isinstance(tab, agrid.AGridTable):
+        return tab.Srel(n, m, a)
+    return tab.Srel(n, m)
 
 
 class PYPData(NamedTuple):
@@ -220,7 +239,7 @@ def ti_plan(data: PYPData, sched: np.ndarray, device) -> TIPlan:
                   pair_n=dev(data.n[jv, iv].astype(np.int64)), mq=mq)
 
 
-def _ti_run(gen, t, T, a, b, tab: agrid.AGridTable, plan: TIPlan,
+def _ti_run(gen, t, T, a, b, tab: Table, plan: TIPlan,
             skip_first: bool, legacy_odds: bool):
     """The TI conditional updates of ``plan``'s steps in order.
 
@@ -238,8 +257,11 @@ def _ti_run(gen, t, T, a, b, tab: agrid.AGridTable, plan: TIPlan,
     nf = plan.cnt.to(dt)
     H = plan.H.to(dt)
     mvec = torch.arange(1, plan.mq + 1, device=t.device)
-    vrows = tab.V(plan.pair_n[None, :, None], mvec[None, None, :],
-                  a[:, None, None]).reshape(C, -1)
+    # (C, P * mq) from a grid; one (1, P * mq) block from a single table,
+    # which every chain reads through an expanded view
+    vrows = _vq(tab, plan.pair_n[None, :, None], mvec[None, None, :],
+                a[:, None, None]).to(dt)
+    vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
     u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
     a2 = a[:, None]
     b2 = b[:, None]
@@ -267,7 +289,7 @@ def _ti_run(gen, t, T, a, b, tab: agrid.AGridTable, plan: TIPlan,
     return t, T
 
 
-def ti_sweep(gen, t, T, a, b, tab: agrid.AGridTable, data: PYPData,
+def ti_sweep(gen, t, T, a, b, tab: Table, data: PYPData,
              skip_first: bool = True, legacy_odds: bool = False):
     """Table-indicator Gibbs sweep in item order (demo.c:405-434,
     check.c:843-867): the oracle for the blocked sweep.
@@ -278,7 +300,7 @@ def ti_sweep(gen, t, T, a, b, tab: agrid.AGridTable, data: PYPData,
     return _ti_run(gen, t, T, a, b, tab, plan, skip_first, legacy_odds)
 
 
-def ti_sweep_blocked(gen, t, T, a, b, tab: agrid.AGridTable, data: PYPData,
+def ti_sweep_blocked(gen, t, T, a, b, tab: Table, data: PYPData,
                      sched=None, mode: str = "group",
                      skip_first: bool = True, legacy_odds: bool = False):
     """Parallel table-indicator sweep over an item schedule.

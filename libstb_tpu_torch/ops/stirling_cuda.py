@@ -62,10 +62,11 @@ SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-# The widest tables K1 and K2 take: the limits of their first designs
-# (a shared row of f64 1/V per block), which the tiled walk no longer
-# needs but which are all the card has been tested at
-_MAX_M = 8192
+# The widest table K2 takes: the limit of its first design (a shared row
+# of f64 1/V per block), which the tiled walk no longer needs but which is
+# all K2 has been tested at; core/stirling.fill_route sends a wider table
+# to K3 below 2^24 rows.  K1 has no width limit (chip_smoke.py phase 2d
+# holds it to the f64 fill at 12288 and 8193 columns).
 TABLE_MAX_M = 14336
 _MAX_N_F32 = 1 << 24                  # the TPU kernels' f32 row-index bound
 # K3 takes n < 2^24 rows, the bound of the JAX kernel it replaces
@@ -266,9 +267,6 @@ def fill_grid_cuda(avec: torch.Tensor, n_max: int, m_max: int,
     _check_cuda("fill_grid_cuda", avec, n_max, m_max)
     if avec.ndim != 1:
         raise ValueError("fill_grid_cuda: avec must be a (G,) vector")
-    if m_max > _MAX_M:
-        raise ValueError(f"fill_grid_cuda: m_max={m_max} > {_MAX_M}, the "
-                         "widest grid tested on the card")
     return _walk("fill_grid", avec, (avec.shape[0], n_max, m_max), with_srel)
 
 

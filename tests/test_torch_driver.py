@@ -58,6 +58,35 @@ def test_run_gibbs_matches_jax_moments():
     np.testing.assert_array_equal(tout["t"].numpy().sum(-1), T)
 
 
+def test_run_gibbs_ars_matches_jax_moments():
+    """kernel="ars" for both (a, b) moves, 200 iterations of 64 chains:
+    the port's moments inside the gate's bands of the JAX driver's run
+    with the same kernel, and of the port's own slice run (two transition
+    kernels, one posterior)."""
+    cfg = dict(ORACLE, iters=200, kernel="ars")
+    data = tpyp.crp_generate(7, 2, 20, 40, 0.5, 1.0)
+    n_max = max(int(data.N.max()) + 2, 16)
+    jout = jdriver.run_gibbs(
+        jax.random.key(8), data,
+        jag.make_grid(n_max, n_max, g=96, dtype=jnp.float64), 64, 0.5, 1.0,
+        jdriver.GibbsConfig(**cfg))
+    grid = tag.make_grid(n_max, n_max, g=96, dtype=torch.float64,
+                         device="cpu")
+    tout = tdriver.run_gibbs(rng.generator(8, "cpu"), data, grid, 64, 0.5,
+                             1.0, tdriver.GibbsConfig(**cfg))
+    sout = tdriver.run_gibbs(rng.generator(9, "cpu"), data, grid, 64, 0.5,
+                             1.0, tdriver.GibbsConfig(**dict(cfg,
+                                                             kernel="slice")))
+    for k, floor in (("Tave", 0.05), ("aave", 0.01), ("bave", 0.05)):
+        _within_bands(np.asarray(jout[k]), tout[k].numpy(), floor)
+        _within_bands(sout[k].numpy(), tout[k].numpy(), floor)
+    T = tout["T"].numpy()
+    assert ((T >= (data.n > 0).sum(1)) & (T <= data.N)).all()
+    a, b = tout["a"].numpy(), tout["b"].numpy()
+    assert ((a >= 0.01) & (a <= 0.98)).all() and ((b >= 0.01)
+                                                  & (b <= 2000)).all()
+
+
 def test_item_order_sweep_and_fixed_hypers():
     """ti_blocked=False sweeps items in order; no (a, b) cycles keeps the
     starts; burn-in and averaging as in the JAX driver."""
@@ -91,7 +120,7 @@ def test_gibbs_config_is_a_copy():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(sampler="CT"), "item 9"), (dict(sampler="CTW"), "item 9"),
-    (dict(sampler="HSA"), "item 9"), (dict(kernel="ars"), "item 8"),
+    (dict(sampler="HSA"), "item 9"),
     (dict(collect_traces=True), "items 6 and 11")])
 def test_unported_options_raise(kw, item):
     data = tpyp.crp_generate(0, 1, 4, 6, 0.5, 1.0)

@@ -98,7 +98,8 @@ def test_row_count_trimmed():
 
 
 @pytest.mark.parametrize("g", [1, 64])
-@pytest.mark.parametrize("n,m", TILE_EDGES + [(N, M), (16384, 1024)])
+@pytest.mark.parametrize("n,m", TILE_EDGES + [(N, M), (16384, 1024),
+                                              (40, 8193), (12288, 12288)])
 def test_tile_plan_covers_columns(g, n, m):
     """Every column of every table lies in exactly one tile, every tile
     has exactly one ticket, and a tile's producer (the tile to its left)
@@ -125,6 +126,9 @@ def test_tile_plan_covers_columns(g, n, m):
     (1, 5, 1, 132, 1),                  # one column
     (96, 300, 300, 132, 960),           # a gate grid: 960 tiles
     (64, 16384, 8192, 132, 2112),       # more tiles than fit: warps loop
+    (2, 12288, 12288, 132, 768),        # past 8192 columns: 384 tiles a table
+    (2, 8200, 8193, 132, 514),          # a ragged last tile of one column
+    (8, 16384, 16384, 132, 2112),       # 4096 tiles: warps loop
     (3, 10, 100, 1, 12),                # one SM
 ])
 def test_tile_plan_geometry(g, n, m, sms, blocks):
@@ -183,4 +187,16 @@ def test_kernel_rejects_unsupported(cuda_device):
         sc.fill_grid(torch.zeros(2, dtype=torch.float16,
                                  device=cuda_device), 8, 8)
     with pytest.raises(ValueError):
-        sc.fill_grid(torch.zeros(2, device=cuda_device), 8, 16384)
+        sc.fill_grid(torch.zeros(2, 2, device=cuda_device), 8, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(300, 8193), (2048, 12288)])
+def test_kernel_past_8192_columns(cuda_device, n, m):
+    """K1 has no width limit: tables wider than 8192 columns, one with a
+    last tile of a single column, against the f64 plain fill."""
+    avec = torch.tensor([0.2, 0.7], dtype=torch.float32, device=cuda_device)
+    v, s = sc.fill_grid(avec, n, m)
+    torch.cuda.synchronize()
+    v64, s64 = sc.fill_grid_ref(avec.double().cpu(), n, m)
+    _assert_close_tables(v, s, v64, s64, 1e-4, 5e-2)

@@ -156,7 +156,7 @@ def test_cuda_launchers_reject_cpu_tensors():
     ("cuda", 16384, 64, True, "fill_table_cols"),
     ("cuda", (1 << 24) - 1, 8, True, "fill_table_cols"),
     ("cuda", 1 << 24, 8, True, "fill_table"),
-    ("cuda", 1 << 16, 64, False, "fill_table"),
+    ("cuda", 1 << 16, 64, False, "fill_table_cols"),
     ("cuda", 20000, 14337, True, "fill_table_cols"),
     ("cuda", 20000, 14337, False, "fill_table_cols"),
     ("cuda", 20000, 14336, True, "fill_table"),
@@ -165,7 +165,8 @@ def test_cuda_launchers_reject_cpu_tensors():
 def test_fill_route(device, n, m, build_v, route):
     """On a CUDA device every fill is a kernel: K3 from n = 4 m (below
     2^24, set from the crossover measured on the card) or past K2's widest
-    table, K2 otherwise; the plain fill only on the CPU."""
+    table, K2 otherwise, whether or not V is kept; the plain fill only on
+    the CPU."""
     assert tst.fill_route(device, n, m, build_v) == route
 
 

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from libstb_tpu.core import agrid as jag
+from libstb_tpu.core import stirling as jst
 from libstb_tpu.models import pyp as jpyp
 from libstb_tpu_torch import convert
 from libstb_tpu_torch.core import rng
+from libstb_tpu_torch.core import stirling as tst
 from libstb_tpu_torch.models import pyp as tpyp
 
 torch.set_num_threads(1)
@@ -157,3 +159,60 @@ def test_ti_sweep_equal(setup, legacy, skip_first):
         lambda *args: tpyp.ti_sweep(*args, **kw),
         lambda key: np.asarray(_step_uniforms(key, L, len(setup[3]),
                                               0))[..., None])
+
+
+@pytest.fixture(scope="module")
+def table_setup():
+    """One discount's StirlingTable from each package's own make, for all
+    chains (b varies); the JAX sweeps take either kind of table through
+    ``_vq`` (tests/test_models.py:374-441)."""
+    data = tpyp.crp_generate(9, 4, 8, 30, 0.5, 5.0)
+    n = int(data.n.max()) + 2
+    jt = jst.make(n, n, n + 32, n + 32, 0.5, dtype=jnp.float64)
+    tt = tst.make(n, n, n + 32, n + 32, 0.5, dtype=torch.float64,
+                  device="cpu")
+    C = 8
+    return data, jt, tt, np.full(C, 0.5), np.linspace(0.5, 20.0, C)
+
+
+@pytest.mark.parametrize("legacy,skip_first", [(False, True), (True, False)])
+@pytest.mark.parametrize("mode", ["group", "cat"])
+def test_ti_sweep_blocked_on_stirling_table(table_setup, legacy, skip_first,
+                                            mode):
+    data = table_setup[0]
+    sched = jpyp.ti_schedule(data, mode)
+    S, W = sched.shape
+    kw = dict(mode=mode, skip_first=skip_first, legacy_odds=legacy)
+    _run_both(
+        table_setup,
+        lambda *args: jpyp.ti_sweep_blocked(*args, sched=sched, **kw),
+        lambda *args: tpyp.ti_sweep_blocked(*args, sched=sched, **kw),
+        lambda key: _step_uniforms(key, S, len(table_setup[3]), W))
+
+
+@pytest.mark.parametrize("legacy,skip_first", [(False, True), (True, False)])
+def test_ti_sweep_on_stirling_table(table_setup, legacy, skip_first):
+    data = table_setup[0]
+    L = data.data_cat.shape[0]
+    kw = dict(skip_first=skip_first, legacy_odds=legacy)
+    _run_both(
+        table_setup,
+        lambda *args: jpyp.ti_sweep(*args, **kw),
+        lambda *args: tpyp.ti_sweep(*args, **kw),
+        lambda key: np.asarray(_step_uniforms(key, L, len(table_setup[3]),
+                                              0))[..., None])
+
+
+def test_table_queries_dispatch(setup, table_setup):
+    """_vq / _srelq: the grid at the chains' discounts, a single table at
+    its own; the single table's V block is one row shared by the chains."""
+    _, _, tg, a, _ = setup
+    _, _, tt, _, _ = table_setup
+    n = torch.tensor([[5, 9, 12]])
+    m = torch.tensor([[2, 4, 12]])
+    ta = torch.tensor(a)[:, None]
+    assert torch.equal(tpyp._vq(tg, n, m, ta), tg.V(n, m, ta))
+    assert torch.equal(tpyp._srelq(tg, n, m, ta), tg.Srel(n, m, ta))
+    assert torch.equal(tpyp._vq(tt, n, m, ta), tt.V(n, m))
+    assert torch.equal(tpyp._srelq(tt, n, m, ta), tt.Srel(n, m))
+    assert tpyp._vq(tt, n, m, ta).shape == (1, 3)

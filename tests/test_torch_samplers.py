@@ -181,8 +181,23 @@ def test_gamma_and_loggamma_draws(alpha):
                                special.digamma(alpha), rtol=1e-10)
 
 
-def test_ars_not_ported(workload):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        thyper.sample_b(rng.generator(0, "cpu"), torch.ones(2), [3.0],
-                        torch.ones(2, 1), torch.full((2,), 0.5), 1.1, 20.0,
-                        kernel="ars")
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gumbel_and_open_uniform_draws(dtype):
+    """200k draws each: the Gumbel's mean (Euler's constant) and variance
+    (pi^2 / 6) within 6 SE / 3%, a KS p-value above 1e-3; the uniform on
+    [1e-12, 1) has a finite log.  A Replay hands either back unchanged."""
+    n = 200_000
+    g = rng.gumbel(rng.generator(3, "cpu"), (n,), dtype, "cpu")
+    assert g.dtype == dtype and bool(torch.isfinite(g).all())
+    g = g.double().numpy()
+    assert abs(g.mean() - np.euler_gamma) < 6 * np.pi / np.sqrt(6 * n)
+    assert abs(g.var() / (np.pi ** 2 / 6) - 1) < 0.03
+    assert stats.kstest(g, stats.gumbel_r.cdf).pvalue > 1e-3
+    u = rng.uniform_open(rng.generator(4, "cpu"), (n,), dtype, "cpu")
+    assert u.dtype == dtype and float(u.min()) >= 1e-12 and float(u.max()) < 1
+    assert bool(torch.isfinite(torch.log(u)).all())
+    assert abs(float(u.double().mean()) - 0.5) < 6 / np.sqrt(12 * n)
+    rec = np.array([0.25, 1e-12, 0.75])
+    for fn in (rng.gumbel, rng.uniform_open):
+        np.testing.assert_array_equal(
+            fn(rng.Replay([rec]), (3,), torch.float64, "cpu").numpy(), rec)

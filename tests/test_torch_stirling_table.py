@@ -391,6 +391,20 @@ def test_build_flags():
     assert float(s_only.S(50, 3)) == float(full.S(50, 3))
 
 
+@pytest.mark.parametrize("n,m,route", [
+    (4 * 1024 - 1, 1024, "fill_table"), (4 * 1024, 1024, "fill_table_cols"),
+    (65535, 1024, "fill_table_cols"), (39, 10, "fill_table"),
+    (40, 10, "fill_table_cols"), ((1 << 24) - 1, 64, "fill_table_cols"),
+    (1 << 24, 64, "fill_table")])
+def test_fill_route_ignores_build_v(n, m, route):
+    """An S-only table takes the same kernel as a full one, on either side
+    of n = 4 m: the column kernel computes V on its way to Srel, so a long
+    S-only table has no reason to take the row walk."""
+    for build_v in (True, False):
+        assert tst.fill_route("cuda", n, m, build_v=build_v) == route
+    assert tst.fill_route("cpu", n, m, build_v=False) == "fill_rows"
+
+
 def test_list_torch_runs_on_cpu():
     """cli/list_torch.py at small N on the CPU prints what the port's
     table holds, and the grown S value agrees with the JAX table (f32,
