@@ -64,11 +64,25 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      such a grid: E[T_j] within 3 combined SE + 0.05; (d)
      special.digamma, trigamma and digamma_inv at 10^6 points on [0.01,
      10^4] against torch.special, and data_curve_sparse against
-     data_curve at 2^18 + 5 pairs.
+     data_curve at 2^18 + 5 pairs;
+ 11. the check.c samplers: run_gibbs with CT, CTW (w = 10) and HSA (f32,
+     K1 grids) against the JAX package's CPU-f64 moments in
+     tests/data/torch_check_ref.json, within phase 4's bands, with each
+     grid held to its plain-f64 fill and the final states' invariants
+     exact; and the host SA oracle against fixed-(a, b) HSA and CT runs
+     on the card (6 SE + 0.15);
+ 12. check.c scale (100 groups x 1000 items, 20 categories, 32 chains):
+     stirling.make on K2, held to its plain-f64 table; four sweeps each
+     of the pair-major TI, the relative-window CTW and the pair-major HSA,
+     timed (item-updates/s, CUDA events), their invariants exact; one TI
+     and one CTW sweep under the card's draws by both V / Srel routes
+     (equal) and through the same sweeps on the CPU in f64 on a plain-f64
+     table (equal in all but at most 2 of 32 chains); one profiled sweep
+     of each (kernels, device-busy share).
 
 The second-to-last line is a JSON object with each kernel's launches
-(summed over the paths of phases 3, 7, 9 and 10, each driven with the
-counts set to 0 just before it; "launches_by_path" splits them), error
+(summed over the paths of phases 3, 7, 9, 10, 11 and 12, each driven with
+the counts set to 0 just before it; "launches_by_path" splits them), error
 and times; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -84,6 +98,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GATE_REF = os.path.join(ROOT, "tests", "data", "torch_gate_ref.json")
+CHECK_REF = os.path.join(ROOT, "tests", "data", "torch_check_ref.json")
 # the ARS run of phase 9: one of the gate's seeds at half the gate's depth (an
 # ARS iteration costs 44-51 ms on an H100, 2000 of them ~100 s)
 ARS_SEED, ARS_ITERS = "7", 1000
@@ -646,6 +661,16 @@ def gate_seed(dev, agrid, driver, pyp, ref, seed, cfg):
                            ref["b0"], cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
+    ok = within_bands(r, out, f"seed {seed}")
+    out["grid"], out["data"] = grid, data
+    return ok, run_s, out
+
+
+def within_bands(r, out, label):
+    """The run's per-chain E[T_j], E[a], E[b] against the reference ``r``:
+    |difference| within 2 combined MC-SE plus the floors 0.05 / 0.01 /
+    0.05 (tools/oracle_compare.compare()).  Prints each; returns whether
+    all hold."""
     ours = dict(T=out["Tave"].double().cpu().numpy(),
                 a=out["aave"].double().cpu().numpy()[:, None],
                 b=out["bave"].double().cpu().numpy()[:, None])
@@ -659,11 +684,10 @@ def gate_seed(dev, agrid, driver, pyp, ref, seed, cfg):
         band = 2 * np.sqrt(rs ** 2 + osd ** 2) + floor
         good = bool(np.all(np.abs(rm - om) <= band))
         ok &= good
-        print(f"   seed {seed} E[{name}]: ref={np.round(rm, 4)} "
+        print(f"   {label} E[{name}]: ref={np.round(rm, 4)} "
               f"ours={np.round(om, 4)} band={np.round(band, 4)} -> "
               f"{'OK' if good else 'MISMATCH'}")
-    out["grid"], out["data"] = grid, data
-    return ok, run_s, out
+    return ok
 
 
 def phase9_ars(dev, sc, agrid, driver, pyp, card, ref, slice_s):
@@ -952,6 +976,279 @@ def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
     return dict(sc.LAUNCHES)
 
 
+def check_state(t, T, n, what):
+    """Exact invariants of a (C, J, D) table-count state: T_j = sum_i
+    t_ji, 1 <= t <= n on occupied pairs, t = 0 elsewhere."""
+    n = torch.as_tensor(n, device=t.device)[None]
+    check(bool(torch.equal(t.sum(-1, dtype=torch.int32), T)),
+          f"{what}: T_j != sum_i t_ji")
+    check(bool(torch.where(n > 0, (t >= 1) & (t <= n), t == 0).all()),
+          f"{what}: t outside [1, n] on an occupied pair, or not 0 off one")
+
+
+def phase11_check(dev, sc, agrid, driver, pyp, card, ref):
+    """The check.c samplers through run_gibbs on the card against the JAX
+    CPU-f64 moments, and SA on the host against fixed-(a, b) HSA and CT
+    runs; returns K1's launches on the main path."""
+    from libstb_tpu_torch.models import sa
+
+    t0 = phase(f"11 check.c multi-sampler gate: run_gibbs "
+               f"{'/'.join(ref['samplers'])} (f32, {ref['chains']} chains, "
+               f"{ref['config']['iters']} iterations) vs the JAX CPU-f64 "
+               "moments; SA vs fixed-(a, b) HSA and CT")
+    reset_launches(sc)
+    ok, runs = True, []
+    for sampler, r in ref["samplers"].items():
+        data = pyp.crp_generate(r["seed"], *ref["data_args"])
+        check(np.array_equal(data.n, np.asarray(r["n"])),
+              f"{sampler}: crp_generate differs from the reference data")
+        n_max = max(int(data.N.max()) + 2, 16)
+        grid = agrid.make_grid(n_max, n_max, g=ref["grid_g"], device=dev)
+        cfg = driver.GibbsConfig(sampler=sampler, **ref["config"])
+        gen = torch.Generator(device=dev).manual_seed(r["seed"] + 2)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        out = driver.run_gibbs(gen, data, grid, ref["chains"], ref["a0"],
+                               ref["b0"], cfg)
+        torch.cuda.synchronize()
+        runs.append((sampler, time.perf_counter() - t_run, cfg.iters, out,
+                     grid, data))
+        ok &= within_bands(r, out, sampler)
+    launches = dict(sc.LAUNCHES)
+    check(ok, "check.c gate: a posterior moment is outside its band")
+    check(launches["fill_grid"] >= 1, "the check.c gate did not launch K1")
+    for sampler, run_s, iters, out, grid, data in runs:
+        check_state(out["t"], out["T"], data.n, sampler)
+        if sampler == "HSA":
+            h = out["hist"]
+            sizes = torch.arange(h.shape[-1], device=dev)
+            check(bool(torch.equal(h.sum(-1, dtype=torch.int32), out["t"])
+                       and torch.equal((h * sizes).sum(-1), torch.as_tensor(
+                           data.n, device=dev).long().expand(h.shape[:-1]))
+                       and (h >= 0).all()),
+                  "HSA: the histogram does not seat n_ji customers at t_ji "
+                  "tables")
+        e_v, e_s = check_grid(sc, grid, f"phase 11 {sampler}")
+        print(f"   {sampler}: run_gibbs {1e3 * run_s / iters:.3f} ms an "
+              f"iteration ({run_s:.3f} s / {iters}); grid "
+              f"{tuple(grid.srel.shape)} V rel {e_v:.3g}, scaled |dSrel| "
+              f"{e_s:.3g} [{card}]")
+
+    # SA (exact explicit seating, host) against the card's HSA and CT at
+    # fixed (a, b): tests/test_sa.py's data and band, 6 SE + 0.15
+    data = pyp.crp_generate(11, 1, 5, 30, 0.5, 1.0)
+    t_run = time.perf_counter()
+    T_sa = float(sa.sa_run(data, iters=3000, a=0.5, b=1.0,
+                           seed=3)["Tave"].sum())
+    sa_s = time.perf_counter() - t_run
+    grid = agrid.make_grid(48, 36, g=100, device=dev)
+    C = 256
+    for name in ("HSA", "CT"):
+        out = driver.run_gibbs(torch.Generator(device=dev).manual_seed(4),
+                               data, grid, C, 0.5, 1.0,
+                               driver.GibbsConfig(iters=160, sampler=name))
+        Tave = out["Tave"].double().sum(1).cpu().numpy()
+        m, se = Tave.mean(), Tave.std() / np.sqrt(C)
+        good = abs(m - T_sa) < 6 * se + 0.15
+        print(f"   fixed (a, b): SA E[T] {T_sa:.4f} ({sa_s:.2f} s host, 3000 "
+              f"sweeps), {name} {m:.4f} +- {se:.4f} -> "
+              f"{'OK' if good else 'MISMATCH'}")
+        check(good, f"{name} disagrees with SA: {m:.4f} vs {T_sa:.4f}")
+    print(f"   launches on the gate's path: {launches}")
+    done(t0)
+    return launches
+
+
+# check.c scale (check.c:83 MAXDATA = 10^5; bench.py:143-204): 100 groups x
+# 1000 items, 20 categories, 32 chains, four sweeps of each sampler
+CHECKC_DATA = (1, 100, 20, 1000, 0.5, 10.0)
+CHECKC_CHAINS, CHECKC_SWEEPS, CHECKC_WINDOW = 32, 4, 10
+
+
+def profile_sweep(fn):
+    """(device operations, device-busy ms, wall ms) of one call of ``fn``
+    under torch.profiler (kernels, copies and fills on the one stream),
+    or None where the profiler sees no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_run = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), busy, wall
+
+
+def phase12_checkc(dev, sc, stirling, pyp, card):
+    """The check.c-scale sweeps on a K2 table: pair-major TI, relative-
+    window CTW and pair-major HSA, timed, their state invariants exact,
+    TI and CTW replayed through the same sweeps on the CPU in f64; returns
+    the kernels' launches on the main path."""
+    from libstb_tpu_torch.core import rng
+
+    C, sweeps, w = CHECKC_CHAINS, CHECKC_SWEEPS, CHECKC_WINDOW
+    t0 = phase(f"12 check.c scale: crp_generate{CHECKC_DATA}, {C} chains, "
+               f"{sweeps} sweeps each of pair TI, CTW (w = {w}) and pair "
+               "HSA on a stirling.make table")
+    t_run = time.perf_counter()
+    data = pyp.crp_generate(*CHECKC_DATA)
+    gen_s = time.perf_counter() - t_run
+    L = int(data.data_cat.size)
+    J, D = data.n.shape
+    n_max = int(data.n.max()) + 2
+    m_max = min(n_max, 1024)
+    f32 = dict(dtype=torch.float32, device=dev)
+    a = torch.full((C,), 0.5, **f32)
+    b = torch.full((C,), 10.0, **f32)
+    jvec, ivec, nvec = pyp.ti_pair_layout(data)
+    order, stages = pyp.ti_pair_stages(nvec)
+    jv, iv, nv = jvec[order], ivec[order], nvec[order]
+    h_order, h_stages = pyp.ti_pair_stages(nvec, skip_first=False)
+    jl, il = (torch.as_tensor(x, device=dev).long() for x in (jv, iv))
+    t_init, T_init = pyp.init_state(data, C, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def timed(step, state):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(sweeps):
+            state = step(state)
+        end.record()
+        torch.cuda.synchronize()
+        return state, start.elapsed_time(end)
+
+    # -- the main path: make (K2) and the sweeps ----------------------------
+    reset_launches(sc)
+    tab = stirling.make(n_max, m_max, n_max + 64, m_max + 64, 0.5,
+                        use_asympt=True, device=dev)
+    m_ti = pyp.ti_pair_m_sel(tab, nv)
+    m_ctw = pyp.ctw_m_sel(tab, data, window=w)
+
+    def ti_step(s):
+        return pyp.ti_sweep_pairs_staged(gen, s[0], s[1], a, b, tab, data,
+                                         jv, iv, nv, stages, m_sel=m_ti)
+
+    def ctw_step(s):
+        return pyp.ctw_sweep_rel(gen, s[0], s[1], a, b, tab, data, window=w,
+                                 m_sel=m_ctw)
+
+    def hsa_step(s):
+        return pyp.hsa_sweep_pairs_staged(gen, s[0], s[1], a, b, data,
+                                          jvec[h_order], ivec[h_order],
+                                          nvec[h_order], h_stages)
+
+    hp0, hT0 = pyp.init_hsa_pairs(data, C, dev, order=h_order)
+    states, ms = {}, {}
+    for name, step, state in (("TI pairs", ti_step, (t_init[:, jl, il],
+                                                     T_init)),
+                              ("CTW rel", ctw_step, (t_init, T_init)),
+                              ("HSA pairs", hsa_step, (hp0, hT0))):
+        step(state)                      # first call: allocator, lazy init
+        states[name], ms[name] = timed(step, state)
+    launches = dict(sc.LAUNCHES)
+    check(not tab.cols and launches["fill_table"] == 1,
+          f"make({n_max}, {m_max}) did not take K2: {tab.report()}, "
+          f"launches {launches}")
+    check(m_ti == m_ctw == n_max - 1, f"m_sel {m_ti} / {m_ctw}: the row route "
+          "is off on the check.c table")
+
+    # -- the table against its plain-f64 version -----------------------------
+    ref = plain_table(stirling, tab, n_max, m_max, 0.5, dev)
+    r = np.random.default_rng(12)
+    worst = check_queries(tab, ref, np.concatenate(
+        [nvec, r.integers(1, n_max + 1, 300)]), np.concatenate(
+        [np.minimum(nvec, r.integers(1, 40, nvec.size)),
+         r.integers(1, m_max + 1, 300)]), f"make({n_max}, {m_max})")
+    del ref
+
+    # -- exact invariants -----------------------------------------------------
+    tp, T = states["TI pairs"]
+    nl = torch.as_tensor(nv, device=dev)[None]
+    check(bool(((tp >= 1) & (tp <= nl)).all()), "TI pairs: t outside [1, n]")
+    check(bool(torch.equal(torch.zeros_like(T).index_add_(1, jl, tp), T)),
+          "TI pairs: T_j != sum of the group's pair counts")
+    check_state(*states["CTW rel"], data.n, "CTW rel")
+    hp, T = states["HSA pairs"]
+    sizes = torch.arange(hp.shape[-1], device=dev)
+    hl = torch.as_tensor(jvec[h_order], device=dev).long()
+    check(bool((hp >= 0).all() and torch.equal(
+        (hp * sizes).sum(-1), torch.as_tensor(nvec[h_order], device=dev)
+        .long().expand(hp.shape[:2]))), "HSA pairs: sum_s s h_s != n_p")
+    check(bool(torch.equal(torch.zeros_like(T).index_add_(
+        1, hl, hp.sum(-1, dtype=torch.int32)), T)),
+        "HSA pairs: T_j != tables of the group")
+    rates = {k: L * C * sweeps / (v * 1e-3) for k, v in ms.items()}
+    print(f"   data {gen_s:.2f} s host: {L} items, {int((data.n > 0).sum())} "
+          f"occupied pairs, largest count {int(data.n.max())}; "
+          f"make({n_max}, {m_max}) K2, worst query error / bound "
+          f"{max(worst.values()):.3g}; launches {launches}")
+    for k in ms:
+        print(f"   {k}: {ms[k] / sweeps:.3f} ms a sweep = {rates[k]:.4g} "
+              f"item-updates/s (CUDA events, {sweeps} sweeps) [{card}]")
+
+    # -- both V / Srel routes, and the CPU-f64 replay --------------------------
+    def draw_ti():
+        return [rng.uniform(gen, (r1 - r0, 2, C, p), torch.float32, dev)
+                .cpu().numpy() for (p, r0, r1) in stages]
+
+    def draw_ctw():
+        return [rng.gumbel(gen, (D, C * J, 2 * w + 1), torch.float32, dev)
+                .cpu().numpy()]
+
+    cpu = torch.device("cpu")
+    ref64 = plain_table(stirling, tab, n_max, m_max, 0.5, cpu)
+    tp0, T0 = states["TI pairs"]
+    t1, T1 = states["CTW rel"]
+    u = draw_ti()
+    ti_card = [pyp.ti_sweep_pairs_staged(rng.Replay(u), tp0, T0, a, b, tab,
+                                         data, jv, iv, nv, stages, m_sel=m)
+               for m in (m_ti, 0)]
+    ti_cpu = pyp.ti_sweep_pairs_staged(
+        rng.Replay(u), tp0.cpu(), T0.cpu(), a.double().cpu(),
+        b.double().cpu(), ref64, data, jv, iv, nv, stages,
+        m_sel=pyp.ti_pair_m_sel(ref64, nv))
+    g = draw_ctw()
+    ctw_card = [pyp.ctw_sweep_rel(rng.Replay(g), t1, T1, a, b, tab, data,
+                                  window=w, m_sel=m) for m in (m_ctw, 0)]
+    ctw_cpu = pyp.ctw_sweep_rel(rng.Replay(g), t1.cpu(), T1.cpu(),
+                                a.double().cpu(), b.double().cpu(), ref64,
+                                data, window=w,
+                                m_sel=pyp.ctw_m_sel(ref64, data, window=w))
+    for name, card_out, cpu_out in (("TI pairs", ti_card, ti_cpu),
+                                    ("CTW rel", ctw_card, ctw_cpu)):
+        check(all(torch.equal(x, y) for x, y in zip(*card_out)),
+              f"{name}: the row and point-query routes differ on the card")
+        diff = (card_out[0][0].cpu() != cpu_out[0]).flatten(1).any(1)
+        diff |= (card_out[0][1].cpu() != cpu_out[1]).any(1)
+        print(f"   {name}: both routes equal on the card; the f64 CPU replay "
+              f"differs in {int(diff.sum())} of {C} chains (at most 2)")
+        check(int(diff.sum()) <= 2, f"{name}: the CPU-f64 replay differs in "
+              f"{int(diff.sum())} chains")
+
+    # -- where the time goes: one profiled sweep each -------------------------
+    for name, step in (("TI pairs", ti_step), ("CTW rel", ctw_step),
+                       ("HSA pairs", hsa_step)):
+        prof = profile_sweep(lambda: step(states[name]))
+        if prof is None:
+            print(f"   {name}: the profiler saw no device kernels (not "
+                  "measured)")
+            continue
+        k, dev_ms, wall = prof
+        print(f"   {name}: one sweep under the profiler: {k} kernels, "
+              f"device busy {dev_ms:.3f} ms of {wall:.3f} ms wall "
+              f"({100 * (1 - dev_ms / wall):.1f}% idle) [{card}]")
+    done(t0)
+    return launches
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -1103,11 +1400,17 @@ def main():
     phase8_crossover(dev, sc, stirling, card)
     paths["9"] = phase9_ars(dev, sc, agrid, driver, pyp, card, ref, slice_s)
     paths["10"] = phase10_hyper(dev, sc, agrid, stirling, pyp, card)
+    with open(CHECK_REF) as f:
+        paths["11"] = phase11_check(dev, sc, agrid, driver, pyp, card,
+                                    json.load(f))
+    paths["12"] = phase12_checkc(dev, sc, stirling, pyp, card)
     # every kernel of a path was launched in that path's own run
     for path, names in (("3", ["fill_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
                         ("9", ["fill_grid"]),
-                        ("10", ["fill_table", "fill_table_cols"])):
+                        ("10", ["fill_table", "fill_table_cols"]),
+                        ("11", ["fill_grid"]),
+                        ("12", ["fill_table"])):
         for name in names:
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")

@@ -2,13 +2,14 @@
 """PYP Gibbs demo on the PyTorch/CUDA port -- cli/demo.py's flags plus
 --device (default cuda).
 
-Generates data by CRP simulation, runs the table-indicator sampler with
-optional (b, a) resampling cycles, and reports posterior mean table
-counts (demo.c:284-311 data gen, 405-489 loop, 507-519 report).  The
-(a, b) moves take the sampler config's 1-D kernel, slice or ARS.  Only
-the TI sampler is ported; the others raise.
+Generates data by CRP simulation, runs the chosen sampler (TI, CT, CTW
+or HSA) with optional (b, a) resampling cycles, and reports posterior
+mean table counts (demo.c:284-311 data gen, 405-489 loop, 507-519
+report).  The (a, b) moves take the sampler config's 1-D kernel, slice or
+ARS.
 
   python cli/demo_torch.py -C 200 -H 2 -I 5
+  python cli/demo_torch.py -C 200 -H 2 -I 5 --sampler HSA
 """
 import argparse
 import os

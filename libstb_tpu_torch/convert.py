@@ -16,7 +16,7 @@ from .core import agrid, stirling
 from .models import pyp
 
 __all__ = ["grid_from_numpy", "table_from_numpy", "data_from_numpy",
-           "state_from_numpy"]
+           "state_from_numpy", "hist_from_numpy"]
 
 GRID_ARRAYS = ("avec", "s1_hi", "s1_lo", "vtab", "srel")
 GRID_STATICS = ("a0", "da", "g_max", "n_max", "m_max", "max_n", "max_m",
@@ -105,3 +105,10 @@ def state_from_numpy(t, T, a, b, device):
         return torch.as_tensor(np.array(x, dtype), device=device)
 
     return dev(t, np.int32), dev(T, np.int32), dev(a), dev(b)
+
+
+def hist_from_numpy(hist, T, device):
+    """HSA state as int32 on ``device``: hist (C, J, D, S+1) from init_hsa
+    or hp (C, P, S+1) from init_hsa_pairs, and T (C, J)."""
+    return (torch.as_tensor(np.array(hist, np.int32), device=device),
+            torch.as_tensor(np.array(T, np.int32), device=device))

@@ -13,8 +13,8 @@ from typing import Iterable, Union
 import numpy as np
 import torch
 
-__all__ = ["generator", "uniform", "uniform_open", "gumbel", "gamma",
-           "loggamma", "Replay"]
+__all__ = ["generator", "uniform", "uniform_open", "uniform_min", "gumbel",
+           "gamma", "loggamma", "Replay"]
 
 
 class Replay:
@@ -54,6 +54,15 @@ def uniform_open(gen: Gen, shape, dtype, device) -> torch.Tensor:
         return gen.next(shape, dtype, device)
     u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
     return torch.clamp(1e-12 + (1.0 - 1e-12) * u, min=1e-12)
+
+
+def uniform_min(gen: Gen, lo: float, shape, dtype, device) -> torch.Tensor:
+    """Uniform[lo, 1) as lo + (1 - lo) U (jax.random.uniform's ``minval``;
+    the inverse-CDF draws of the pair-major HSA sweep)."""
+    if isinstance(gen, Replay):
+        return gen.next(shape, dtype, device)
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return lo + (1.0 - lo) * u
 
 
 def gumbel(gen: Gen, shape, dtype, device) -> torch.Tensor:

@@ -1,18 +1,22 @@
-"""Gibbs-run driver: the main-loop analog of test/demo.c:405-519, batched
-over chains, in PyTorch.
+"""Gibbs-run driver: the main-loop analog of test/demo.c:405-519 and
+test/check.c:715-1054, batched over chains, in PyTorch.
 
-Port of the TI path of libstb_tpu/models/driver.py, with either 1-D
-kernel (slice or ARS) for the (a, b) moves.  The JAX package
-compiles the whole run into one program (a lax.scan over iterations);
-here the iterations are a Python loop that enqueues each step's kernels
-on the device, and the host waits on the device only inside the slice
-sampler's per-try exit test.  Statistics accumulate on the device after
-burn-in.  CT/CTW/HSA, per-iteration traces and ``run_gibbs_timed`` are
-not ported yet (ROADMAP Queue 1, items 6 and 9).
+Port of libstb_tpu/models/driver.py: ``run_gibbs`` with the TI, CT, CTW
+and HSA samplers and either 1-D kernel (slice or ARS) for the (a, b)
+moves, and ``run_gibbs_timed``, check.c's wall-clock-bounded mode.  The
+JAX package compiles a run into one program (a lax.scan over
+iterations); here the iterations are a Python loop that enqueues each
+step's kernels on the device, and the host waits on the device only
+inside the slice sampler's per-try exit test.  Statistics accumulate on
+the device after burn-in.  Per-iteration traces are not ported yet
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,7 +24,9 @@ from ..core import agrid
 from ..samplers import hyper
 from . import pyp
 
-__all__ = ["GibbsConfig", "run_gibbs"]
+__all__ = ["GibbsConfig", "run_gibbs", "run_gibbs_timed"]
+
+SAMPLERS = ("TI", "CT", "CTW", "HSA")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,57 +57,96 @@ class GibbsConfig:
 
 
 def _check_ported(cfg: GibbsConfig):
-    if cfg.sampler.upper() != "TI":
-        raise NotImplementedError(
-            f"sampler={cfg.sampler!r}: only TI is ported; CT/CTW/HSA are "
-            "ROADMAP Queue 1, item 9")
+    if cfg.sampler.upper() not in SAMPLERS:
+        raise ValueError(f"unknown sampler {cfg.sampler}")
     if cfg.collect_traces:
         raise NotImplementedError(
             "collect_traces: traces, R-hat and ESS are ROADMAP Queue 1, "
             "items 6 and 11")
 
 
-def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
-              chains: int, a0: float, b0: float, cfg: GibbsConfig):
-    """Run the full Gibbs chain ensemble on the grid's device; returns
-    posterior-mean stats (demo.c:493-519): time-averaged t, T (post
-    burn-in) per chain, a/b averages, and their ensemble means in the
-    "*_mean" entries, plus the final state.
+class _Plan(NamedTuple):
+    """What a run builds once from its data, on the grid's device."""
+    sampler: str
+    tmax: int                       # CT candidates 1..max n + 1
+    ti: Optional[pyp.TIPlan]        # the TI item schedule
+    ns_flat: torch.Tensor           # (J * D,) counts for sample_a
+    N_b: torch.Tensor               # group totals for sample_b
 
-    The grid is grown up front (ensure_grid) to cover every query the run
-    can make, as the JAX driver does.  ``gen``: a torch.Generator on the
-    grid's device.
-    """
+
+def _prepare(data: pyp.PYPData, grid: agrid.AGridTable, cfg: GibbsConfig):
+    """The grid grown to cover every query the run can make, and the
+    run's plan."""
     _check_ported(cfg)
     n_req, m_req = agrid.required_dims(data.n)
     grid = agrid.ensure_grid(grid, n_req, m_req,
                              quit_on_bound=cfg.quit_on_bound)
     dt, dev = grid.srel.dtype, grid.device
-    t, T = pyp.init_state(data, chains, dev)
-    a = torch.full((chains,), a0, dtype=dt, device=dev)
-    b = torch.full((chains,), b0, dtype=dt, device=dev)
-    sched = (pyp.ti_schedule(data, "group") if cfg.ti_blocked
-             else pyp.item_schedule(data))
-    plan = pyp.ti_plan(data, sched, dev)
-    ns_flat = torch.as_tensor(data.n.reshape(-1), device=dev)
-    N_b = torch.as_tensor(data.N[: cfg.b_groups], dtype=dt, device=dev)
-    burnin = cfg.resolved_burnin()
+    sampler = cfg.sampler.upper()
+    ti = None
+    if sampler == "TI":
+        sched = (pyp.ti_schedule(data, "group") if cfg.ti_blocked
+                 else pyp.item_schedule(data))
+        ti = pyp.ti_plan(data, sched, dev)
+    return grid, _Plan(
+        sampler=sampler, tmax=int(data.n.max()) + 1, ti=ti,
+        ns_flat=torch.as_tensor(data.n.reshape(-1), device=dev),
+        N_b=torch.as_tensor(data.N[: cfg.b_groups], dtype=dt, device=dev))
 
-    t_sum = torch.zeros(t.shape, dtype=dt, device=dev)
-    T_sum = torch.zeros(T.shape, dtype=dt, device=dev)
-    a_sum = torch.zeros_like(a)
-    b_sum = torch.zeros_like(b)
-    for it in range(cfg.iters):
-        t, T = pyp.ti_sweep_blocked(gen, t, T, a, b, grid, data, sched=plan,
+
+def _init(data: pyp.PYPData, grid: agrid.AGridTable, chains: int,
+          a0: float, b0: float, plan: _Plan) -> dict:
+    """The starting state: t, T (one table per occupied category), the
+    HSA histogram (None for the other samplers), a and b."""
+    dt, dev = grid.srel.dtype, grid.device
+    t, T = pyp.init_state(data, chains, dev)
+    hist = (pyp.init_hsa(data, chains, dev)[0] if plan.sampler == "HSA"
+            else None)
+    return dict(t=t, T=T, hist=hist,
+                a=torch.full((chains,), a0, dtype=dt, device=dev),
+                b=torch.full((chains,), b0, dtype=dt, device=dev))
+
+
+def _sweep(gen, data, grid, state, cfg: GibbsConfig, plan: _Plan):
+    """One sweep of the configured sampler; returns (t, T, hist)."""
+    t, T, a, b = state["t"], state["T"], state["a"], state["b"]
+    if plan.sampler == "TI":
+        # exact group-major reordering (see GibbsConfig.ti_blocked)
+        t, T = pyp.ti_sweep_blocked(gen, t, T, a, b, grid, data,
+                                    sched=plan.ti,
                                     skip_first=cfg.ti_skip_first,
                                     legacy_odds=cfg.ti_legacy)
+        return t, T, None
+    if plan.sampler == "HSA":
+        hist, T = pyp.hsa_sweep(gen, state["hist"], T, a, b, data)
+        return hist.sum(-1, dtype=torch.int32), T, hist
+    window = cfg.window if plan.sampler == "CTW" else None
+    t, T = pyp.ct_sweep(gen, t, T, a, b, grid, data, plan.tmax,
+                        window=window, maxrel=cfg.maxrel or None)
+    return t, T, None
+
+
+def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
+               cfg: GibbsConfig, plan: _Plan, burnin: int) -> dict:
+    """``cfg.iters`` iterations from ``state`` (the cycle phases counted
+    from 0), the statistics of iterations >= ``burnin`` averaged."""
+    dt = grid.srel.dtype
+    C = state["t"].shape[0]
+    t_sum = torch.zeros(state["t"].shape, dtype=dt, device=grid.device)
+    T_sum = torch.zeros(state["T"].shape, dtype=dt, device=grid.device)
+    a_sum = torch.zeros_like(state["a"])
+    b_sum = torch.zeros_like(state["b"])
+    for it in range(cfg.iters):
+        t, T, hist = _sweep(gen, data, grid, state, cfg, plan)
+        a, b = state["a"], state["b"]
         if cfg.bcycle > 0 and it % cfg.bcycle == 0:
-            b = hyper.sample_b(gen, b, N_b, T[:, : cfg.b_groups].to(dt), a,
-                               cfg.shape, cfg.scale, kernel=cfg.kernel)[0]
+            b = hyper.sample_b(gen, b, plan.N_b, T[:, : cfg.b_groups].to(dt),
+                               a, cfg.shape, cfg.scale, kernel=cfg.kernel)[0]
         if cfg.acycle > 0 and it % cfg.acycle == 0:
-            a = hyper.sample_a(gen, a, grid, ns_flat, t.reshape(chains, -1),
+            a = hyper.sample_a(gen, a, grid, plan.ns_flat, t.reshape(C, -1),
                                T.to(dt), b[:, None].expand(T.shape),
                                kernel=cfg.kernel)[0]
+        state = dict(t=t, T=T, hist=hist, a=a, b=b)
         if it >= burnin:
             t_sum += t
             T_sum += T
@@ -112,5 +157,113 @@ def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
     return dict(
         tave=tave, Tave=Tave, aave=aave, bave=bave,
         tave_mean=tave.mean(dim=0), Tave_mean=Tave.mean(dim=0),
-        aave_mean=aave.mean(), bave_mean=bave.mean(),
-        t=t, T=T, a=a, b=b, hist=None)
+        aave_mean=aave.mean(), bave_mean=bave.mean(), **state)
+
+
+def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
+              chains: int, a0: float, b0: float, cfg: GibbsConfig):
+    """Run the full Gibbs chain ensemble on the grid's device; returns
+    posterior-mean stats (demo.c:493-519): time-averaged t, T (post
+    burn-in) per chain, a/b averages, and their ensemble means in the
+    "*_mean" entries, plus the final state (t, T, a, b, and the HSA
+    histogram ``hist``, None for the other samplers).
+
+    The grid is grown up front (ensure_grid) to cover every query the run
+    can make, as the JAX driver does.  ``gen``: a torch.Generator on the
+    grid's device.
+    """
+    grid, plan = _prepare(data, grid, cfg)
+    return _run_chunk(gen, data, grid, _init(data, grid, chains, a0, b0,
+                                             plan),
+                      cfg, plan, cfg.resolved_burnin())
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_gibbs_timed(gen, data: pyp.PYPData, grid: agrid.AGridTable,
+                    chains: int, a0: float, b0: float, cfg: GibbsConfig,
+                    iter_ms: Optional[float] = None,
+                    burnin_ms: Optional[float] = None,
+                    chunk: int = 16, progress=None):
+    """Wall-clock-bounded Gibbs run (check.c's '-C Nms' / '-B Nms' modes,
+    check.c:380-393, 1028-1054; libstb_tpu/models/driver.run_gibbs_timed).
+
+    Runs chunks of ``chunk`` iterations (rounded up to a multiple of
+    lcm(bcycle, acycle), so the cycle phases match one long run), carrying
+    the state across chunks.  Burn-in ends when ``burnin_ms`` has elapsed
+    (else after cfg's burn-in count); sampling stops when ``iter_ms`` has
+    elapsed (else after cfg.iters, the last chunk clamped).  One chunk runs
+    off the clock first and is discarded, as check.c starts its timer after
+    S_make.  Returns run_gibbs-style statistics plus ``iters_done``,
+    ``burnin_done`` and ``elapsed_ms``.
+
+    ``progress``: optional callable, called after every post-burn-in chunk
+    with (iters_done, elapsed_ms, running means dict) -- check.c's '-p
+    repcyc' report (check.c:996-1010).
+    """
+    grid, plan = _prepare(data, grid, cfg)
+    dev = grid.device
+    cycles = [c for c in (cfg.bcycle, cfg.acycle) if c > 0]
+    if cycles:
+        period = math.lcm(*cycles)
+        chunk = math.ceil(chunk / period) * period
+    state = _init(data, grid, chains, a0, b0, plan)
+
+    def one_chunk(state, iters):
+        return _run_chunk(gen, data, grid, state,
+                          dataclasses.replace(cfg, iters=iters), plan, 0)
+
+    out = one_chunk(state, chunk)            # off the clock, discarded
+    _sync(dev)
+
+    sums = None
+    kept = 0
+    done = 0
+    step_iters = chunk          # the loop may not run at all (iters == 0)
+    burnin_done = None
+    start = time.perf_counter()
+    max_iters = cfg.iters if iter_ms is None else 10 ** 9
+    burnin = cfg.resolved_burnin() if burnin_ms is None else None
+    keys = ("tave", "Tave", "aave", "bave")
+    while done < max_iters:
+        # count mode: clamp the last chunk so iters_done == cfg.iters
+        step_iters = chunk if iter_ms is not None else min(
+            chunk, max_iters - done)
+        out = one_chunk(state, step_iters)
+        state = {k: out[k] for k in ("t", "T", "hist", "a", "b")}
+        _sync(dev)
+        done += step_iters
+        el_ms = (time.perf_counter() - start) * 1e3
+        in_burn = (el_ms <= burnin_ms if burnin_ms is not None
+                   else done <= burnin)
+        if not in_burn:
+            if burnin_done is None:
+                burnin_done = done - step_iters
+            # out[*ave] are chunk means: weight by the chunk's length so a
+            # clamped last chunk does not skew the average
+            vals = [out[k] * step_iters for k in keys]
+            sums = vals if sums is None else [s + v for s, v in
+                                              zip(sums, vals)]
+            kept += step_iters
+            if progress is not None:
+                rm = [s / kept for s in sums]
+                progress(done, el_ms, dict(
+                    Tave_mean=float(rm[1].sum(-1).mean()),
+                    aave_mean=float(rm[2].mean()),
+                    bave_mean=float(rm[3].mean())))
+        if iter_ms is not None and el_ms > iter_ms:
+            break
+    if sums is None:         # the budget ran out inside burn-in
+        sums = [out[k] for k in keys]
+        kept = 1
+        burnin_done = done - step_iters
+    tave, Tave, aave, bave = (s / kept for s in sums)
+    return dict(tave=tave, Tave=Tave, aave=aave, bave=bave,
+                tave_mean=tave.mean(dim=0), Tave_mean=Tave.mean(dim=0),
+                aave_mean=aave.mean(), bave_mean=bave.mean(),
+                t=state["t"], T=state["T"], a=state["a"], b=state["b"],
+                iters_done=done, burnin_done=burnin_done,
+                elapsed_ms=(time.perf_counter() - start) * 1e3)

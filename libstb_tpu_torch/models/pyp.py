@@ -1,19 +1,27 @@
-"""Pitman-Yor process models: data generation and the TI Gibbs sweeps.
+"""Pitman-Yor process models: data generation and the Gibbs sweeps.
 
-Port of the main-path parts of libstb_tpu/models/pyp.py (see its
-docstring): the host-side numpy data generation (copied, so the port runs
-without JAX; tests/test_torch_pyp.py holds the copies array-equal to the
-originals) and the table-indicator sweeps, batched over chains.
+Port of libstb_tpu/models/pyp.py (see its docstring): the host-side numpy
+data generation and pair layouts (copied, so the port runs without JAX;
+tests/test_torch_pyp.py and tests/test_torch_sweeps.py hold the copies
+array-equal to the originals) and every sweep of the check.c samplers,
+batched over chains:
 
-The sweeps read V(n, t+1; a) from a discount grid or from one discount's
-``StirlingTable`` (``_vq``).  Within one sweep every query is V(n_p, m,
-a_c) for an occupied (group, category) pair p, m = 1..max n + 1 and the
-chain's current discount a_c, so the sweep evaluates those rows once (the
-table's ``V`` on the whole block, the same values elementwise) and each
-step gathers from them; a single table's block is shared by the chains.
-The uniforms of a sweep are drawn as one (steps, 2, chains, width) block.
-The CT, CTW and HSA samplers and the pair-major sweeps are not ported yet
-(ROADMAP Queue 1, item 9).
+* TI: ``ti_sweep`` / ``ti_sweep_blocked`` (item order or a schedule) and
+  the pair-major ``ti_sweep_pairs`` family (check.c scale);
+* CT / CTW: ``ct_sweep`` over the full candidate range (with a window,
+  the check.c '-c' bound, or per-chain counts and base for HPYP) and
+  ``ctw_sweep_rel`` over a relative window;
+* HSA: the item-sequential ``hsa_sweep`` (the small-scale oracle) and the
+  pair-major ``hsa_sweep_pairs`` family.
+
+The sweeps read V(n, t+1; a) and Srel(n, t; a) from a discount grid or
+from one discount's ``StirlingTable`` (``_vq`` / ``_srelq``).  The TI
+sweeps evaluate the V rows of the occupied pairs once and gather from
+them; the pair-major sweeps on a ``StirlingTable`` gather from its rows
+(``V_rows`` / ``Srel_rows``) where the JAX package selects by a dense
+compare-reduce, which only suits the TPU.  Each sweep draws its random
+numbers as one block (one per stage for the staged sweeps), in the order
+the JAX sweep's keys would, so ``rng.Replay`` can hand the JAX draws over.
 """
 from __future__ import annotations
 
@@ -26,10 +34,16 @@ from ..core import agrid, rng, stirling
 from ..utils import yaps
 
 _warned_cat_mode = False
+_warned_hsa_pairs = False
 
 __all__ = ["PYPData", "TIPlan", "base_distribution", "crp_generate",
            "from_counts", "init_state", "item_schedule", "ti_plan",
-           "ti_schedule", "ti_sweep", "ti_sweep_blocked"]
+           "ti_schedule", "ti_sweep", "ti_sweep_blocked", "ti_pair_layout",
+           "ti_pair_stages", "ti_sweep_pairs", "ti_sweep_pairs_state",
+           "ti_sweep_pairs_staged", "ti_pair_m_sel", "ct_sweep",
+           "ctw_sweep", "ctw_m_sel", "ctw_sweep_rel", "init_hsa",
+           "hsa_sweep", "init_hsa_pairs", "hsa_sweep_pairs",
+           "hsa_sweep_pairs_staged"]
 
 
 Table = Union[agrid.AGridTable, stirling.StirlingTable]
@@ -316,3 +330,560 @@ def ti_sweep_blocked(gen, t, T, a, b, tab: Table, data: PYPData,
             sched = ti_schedule(data, mode)
         sched = ti_plan(data, sched, t.device)
     return _ti_run(gen, t, T, a, b, tab, sched, skip_first, legacy_odds)
+
+
+# ---------------------------------------------------------------------------
+# Pair-major TI (check.c scale)
+# ---------------------------------------------------------------------------
+
+def ti_pair_layout(data: PYPData):
+    """Host-side pair extraction for the pair-major TI sweep: occupied
+    (group, category) pairs as index vectors (jvec, ivec, counts)."""
+    j_idx, i_idx = np.nonzero(data.n)
+    return (j_idx.astype(np.int32), i_idx.astype(np.int32),
+            data.n[j_idx, i_idx].astype(np.int32))
+
+
+def ti_pair_stages(nvec, skip_first: bool = True, min_pairs: int = 512):
+    """Host-side round staging for the pair-major sweeps: ``(order,
+    stages)``, ``order`` sorting the pairs by descending count so the
+    active set of round ``s`` is a prefix, ``stages`` the ``(pairs,
+    r_start, r_stop)`` triples over shrinking prefixes, cut where the
+    active count halves (libstb_tpu/models/pyp.ti_pair_stages).  The sweep
+    must be called with the same ``skip_first``."""
+    nvec = np.asarray(nvec)
+    order = np.argsort(-nvec, kind="stable").astype(np.int32)
+    c = nvec[order]
+    P = int(len(c))
+    max_c = int(c[0]) if P else 0
+    r = 1 if skip_first else 0
+    stages = []
+    while r < max_c:
+        p_act = int((c > r).sum())
+        if p_act == 0:
+            break
+        if p_act <= min_pairs:
+            stages.append((p_act, r, max_c))
+            break
+        k = p_act // 2
+        # c sorted desc: #(c > c[k]) <= k, so the active set has halved
+        r2 = int(c[k]) if k < P else max_c
+        r2 = min(max(r2, r + 1), max_c)
+        stages.append((p_act, r, r2))
+        r = r2
+    return order, tuple(stages)
+
+
+def _dev_vec(x, device):
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           device=device).long()
+
+
+def _pairs_rounds(u, tp, T, tab, H, nvec, jvec, a_c, b_c, r0: int,
+                  skip_first: bool, legacy_odds: bool, vsel=None):
+    """Rounds r0, r0+1, ... of the pair-major TI sweep over the pairs of
+    ``tp`` (C, p), one per leading entry of the uniforms ``u`` (rounds, 2,
+    C, p).  Every pair with s < n_p updates its table count once a round,
+    reading its group's total T as it stood at the start of the round.
+
+    ``vsel``: (flat V rows, row offsets) from ``StirlingTable.V_rows``: V
+    (n_p, t+1) is then a gather from the pair's row instead of a point
+    query of the table (the same cells, so the same values)."""
+    dt = a_c.dtype
+    nif = nvec.to(dt)[None]
+    multi = nvec > 1
+    for k in range(u.shape[0]):
+        s = r0 + k
+        valid = (s < nvec) & multi
+        if skip_first and s < 1:
+            valid = torch.zeros_like(valid)
+        Tj = T[:, jvec].to(dt)                        # round-start totals
+        dec = (tp > 1) & ((nif - 1.0) * u[k, 0] < (tp - 1).to(dt)) & valid
+        ti2 = tp - dec.to(tp.dtype)
+        if vsel is not None:
+            vflat, vbase = vsel
+            v = vflat[vbase + ti2.long()].to(dt)      # V(n_p, ti2 + 1)
+        else:
+            v = _vq(tab, nvec[None], ti2 + 1, a_c).to(dt)
+        ti2f = ti2.to(dt)
+        denom = (nif - ti2f + 1.0) if legacy_odds else torch.clamp(
+            nif - ti2f, min=1.0)
+        one = H[None] * (b_c + (Tj - dec.to(dt)) * a_c) * ti2f / denom * v
+        inc = (u[k, 1] < one / (one + 1.0)) & valid & (ti2 < nvec[None])
+        delta = inc.to(tp.dtype) - dec.to(tp.dtype)
+        tp = tp + delta
+        T = T.index_add(1, jvec, delta.to(T.dtype))
+    return tp, T
+
+
+def _vsel(tab, nvec, m_sel: int):
+    if not m_sel:
+        return None
+    rows = tab.V_rows(nvec, m_sel)                    # (P, m_sel)
+    base = torch.arange(rows.shape[0], device=rows.device)[None] * m_sel
+    return rows.reshape(-1), base
+
+
+def ti_sweep_pairs_staged(gen, tp, T, a, b, tab: Table, data: PYPData,
+                          jvec, ivec, nvec, stages,
+                          skip_first: bool = True,
+                          legacy_odds: bool = False, m_sel: int = 0):
+    """Staged pair-major TI sweep (libstb_tpu/models/pyp
+    .ti_sweep_pairs_staged): ``tp`` (C, P) holds the table counts of the
+    pairs in ``ti_pair_stages`` order, and stage (p, r0, r1) runs rounds
+    r0..r1-1 over the first p pairs.  Approximate like the cat-mode
+    schedule: a round's same-group pairs read the round-start total T.
+
+    ``m_sel`` > 0 (from ``ti_pair_m_sel``): V from the pairs' table rows
+    by gather.  Draws one (r1 - r0, 2, C, p) block of uniforms a stage.
+    Returns (tp, T) in the sorted order."""
+    if stages and stages[0][1] != (1 if skip_first else 0):
+        raise ValueError(
+            f"stages built with skip_first={stages[0][1] == 1}, sweep "
+            f"called with skip_first={skip_first}: rebuild stages via "
+            f"ti_pair_stages(nvec, skip_first={skip_first})")
+    dt, dev = a.dtype, tp.device
+    jvec, ivec, nvec = (_dev_vec(x, dev) for x in (jvec, ivec, nvec))
+    H = torch.as_tensor(data.H, dtype=dt, device=dev)[ivec]
+    vsel = _vsel(tab, nvec, m_sel)
+    a_c, b_c = a[:, None], b[:, None]
+    C = tp.shape[0]
+    tp = tp.clone()
+    for (p, r0, r1) in stages:
+        u = rng.uniform(gen, (r1 - r0, 2, C, p), dt, dev)
+        ps = None if vsel is None else (vsel[0], vsel[1][:, :p])
+        tps, T = _pairs_rounds(u, tp[:, :p], T, tab, H[:p], nvec[:p],
+                               jvec[:p], a_c, b_c, r0, skip_first,
+                               legacy_odds, ps)
+        tp[:, :p] = tps
+    return tp, T
+
+
+def ti_sweep_pairs_state(gen, tp, T, a, b, tab: Table, data: PYPData,
+                         jvec, ivec, nvec, steps: int,
+                         skip_first: bool = True,
+                         legacy_odds: bool = False, m_sel: int = 0):
+    """Flat pair-major TI sweep: ``steps`` (= max count) rounds over all
+    pairs in layout order (libstb_tpu/models/pyp.ti_sweep_pairs_state).
+    Draws one (steps, 2, C, P) block of uniforms.  Returns (tp, T)."""
+    dt, dev = a.dtype, tp.device
+    jvec, ivec, nvec = (_dev_vec(x, dev) for x in (jvec, ivec, nvec))
+    H = torch.as_tensor(data.H, dtype=dt, device=dev)[ivec]
+    u = rng.uniform(gen, (steps, 2) + tuple(tp.shape), dt, dev)
+    return _pairs_rounds(u, tp, T, tab, H, nvec, jvec, a[:, None],
+                         b[:, None], 0, skip_first, legacy_odds,
+                         _vsel(tab, nvec, m_sel))
+
+
+def ti_pair_m_sel(tab: Table, nvec, cap: int = 4096) -> int:
+    """m_sel for the row-gather V route of the pair-major TI sweeps, or 0
+    (the point-query route): a ``StirlingTable`` with V, in either layout,
+    that holds every (n_p, t+1) in-table, rows at most ``cap`` wide."""
+    nvec = np.asarray(nvec)
+    if (not isinstance(tab, stirling.StirlingTable) or tab.vtab is None
+            or len(nvec) == 0):
+        return 0
+    maxc = int(nvec.max())
+    if maxc + 1 > min(tab.m_max, cap) or maxc > tab.n_max:
+        return 0
+    return maxc + 1
+
+
+def ti_sweep_pairs(gen, t, T, a, b, tab: Table, data: PYPData,
+                   layout=None, skip_first: bool = True,
+                   legacy_odds: bool = False, staged: bool = True,
+                   min_pairs: int = 512):
+    """Dense-state wrapper of the pair-major TI sweeps: (C, J, D) t to
+    pair-major and back, the staged schedule by default, the flat one with
+    ``staged=False``.  ``layout``: a precomputed ``ti_pair_layout``."""
+    if layout is None:
+        layout = ti_pair_layout(data)
+    jvec, ivec, nvec = layout
+    m_sel = ti_pair_m_sel(tab, nvec)
+    dev = t.device
+    if staged and len(nvec):
+        order, stages = ti_pair_stages(nvec, skip_first=skip_first,
+                                       min_pairs=min_pairs)
+        jvec, ivec, nvec = jvec[order], ivec[order], nvec[order]
+    jv, iv = _dev_vec(jvec, dev), _dev_vec(ivec, dev)
+    tp = t[:, jv, iv]
+    if staged and len(nvec):
+        tp, T = ti_sweep_pairs_staged(gen, tp, T, a, b, tab, data, jv, iv,
+                                      nvec, stages, skip_first=skip_first,
+                                      legacy_odds=legacy_odds, m_sel=m_sel)
+    else:
+        steps = int(nvec.max()) if len(nvec) else 0
+        tp, T = ti_sweep_pairs_state(gen, tp, T, a, b, tab, data, jv, iv,
+                                     nvec, steps, skip_first=skip_first,
+                                     legacy_odds=legacy_odds, m_sel=m_sel)
+    t = t.clone()
+    t[:, jv, iv] = tp
+    return t, T
+
+
+# ---------------------------------------------------------------------------
+# Collapsed-table sweeps (CT, CTW)
+# ---------------------------------------------------------------------------
+
+def _ct_conditional(srel, ni, ti, Tj, a, b, Hi, tmax: int, window,
+                    ti_off=None, maxrel=None):
+    """Masked log-weights over the candidates t = 1..tmax (check.c:877-895;
+    libstb_tpu/models/pyp._ct_conditional for the derivation):
+    Srel(n, t) + sum_{k=1}^{t-1} log(H_i (b + (T - t_i + k) a)).
+
+    ``srel``: (R, tmax) Srel(n_i, t) of the rows; ``ni`` / ``Hi``: (R,);
+    ``ti_off`` (default ``ti``) is the stored count subtracted from Tj.
+    ``window`` keeps |t - t_i| <= w; ``maxrel`` masks every candidate from
+    the first t > t_i + 3 whose weight fell maxrel-fold below the running
+    peak (check.c's '-c')."""
+    dt, dev = a.dtype, a.device
+    if ti_off is None:
+        ti_off = ti
+    tts = torch.arange(1, tmax + 1, device=dev)
+    ks = tts.to(dt)                                   # k = 1..tmax
+    tiny = 1e-300 if dt == torch.float64 else 1e-30
+    base = torch.log(torch.clamp(Hi[:, None], min=1e-30)) + torch.log(
+        torch.clamp(b[:, None] + (Tj - ti_off)[:, None].to(dt) * a[:, None]
+                    + ks[None, :] * a[:, None], min=tiny))
+    cum = torch.cumsum(base, dim=-1)
+    hterm = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=-1)
+    lw = hterm + srel
+    ok = tts[None, :] <= ni[:, None]
+    if window is not None:
+        ok = ok & ((tts[None, :] - ti[:, None]).abs() <= window)
+    lw = torch.where(ok, lw, -torch.inf)
+    if maxrel is not None:
+        run_peak = torch.cummax(lw, dim=-1).values
+        cut = ((tts[None, :] > ti[:, None] + 3)
+               & (run_peak - lw > torch.log(torch.tensor(
+                   maxrel, dtype=lw.dtype, device=dev))))
+        dead = torch.cumsum(cut.to(torch.int32), dim=-1) > 0
+        lw = torch.where(dead, -torch.inf, lw)
+    return lw
+
+
+def ct_sweep(gen, t, T, a, b, tab: Table, data: PYPData, tmax: int,
+             window: Optional[int] = None, n_arr=None, H_arr=None,
+             maxrel: Optional[float] = None):
+    """Collapsed-table sweep (check.c:868-904; ``window``: check.c:905-943):
+    each category in turn resamples t for every (chain, group) by a
+    Gumbel-max draw over 1..tmax.
+
+    ``n_arr`` (C, J, D) / ``H_arr`` (C, D) override the data's counts and
+    base with per-chain values (the hierarchical case).  Srel(n_ji, t) is
+    the same for the whole sweep, so it is evaluated once, as one (C, J,
+    D, tmax) block (one chain's for a single table with the data's
+    counts).  Draws one (D, C*J, tmax) block of Gumbels."""
+    dt, dev = a.dtype, t.device
+    n = torch.as_tensor(data.n, device=dev)
+    H = torch.as_tensor(data.H, dtype=dt, device=dev)
+    J, D = data.n.shape
+    C = t.shape[0]
+    a_f = a[:, None].expand(C, J).reshape(-1)
+    b_f = b[:, None].expand(C, J).reshape(-1)
+    n_all = n[None] if n_arr is None else n_arr
+    tts = torch.arange(1, tmax + 1, device=dev)
+    srel = _srelq(tab, n_all[..., None], tts, a[:, None, None, None])
+    srel = srel.expand(C, J, D, tmax)
+    g = rng.gumbel(gen, (D, C * J, tmax), dt, dev)
+    t = t.clone()
+    for i in range(D):
+        ni = n_all[:, :, i].expand(C, J).reshape(-1)
+        if H_arr is None:
+            Hi = H[i].expand(C * J)
+        else:
+            Hi = H_arr[:, i, None].expand(C, J).reshape(-1)
+        ti_stored = t[:, :, i].reshape(-1)
+        Tj = T.reshape(-1)
+        ti = torch.minimum(ti_stored, ni.to(ti_stored.dtype))  # dyn-n guard
+        # Tj still counts the stored t during a dynamic-n transient, so the
+        # other-categories offset subtracts the stored value
+        lw = _ct_conditional(srel[:, :, i].reshape(C * J, tmax), ni, ti, Tj,
+                             a_f, b_f, Hi, tmax, window, ti_off=ti_stored,
+                             maxrel=maxrel)
+        tt = 1 + torch.argmax(lw + g[i], dim=-1).to(t.dtype)
+        tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
+        T = (Tj + tt - ti_stored).reshape(C, J)
+        t[:, :, i] = tt.reshape(C, J)
+    return t, T
+
+
+def ctw_sweep(gen, t, T, a, b, tab: Table, data: PYPData, tmax: int,
+              window: int = 10):
+    """Windowed collapsed sweep (check.c:905-943, TWINDOW default 10)."""
+    return ct_sweep(gen, t, T, a, b, tab, data, tmax, window=window)
+
+
+def ctw_m_sel(tab: Table, data: PYPData, window: int = 10,
+              cap: int = 4096) -> int:
+    """m_sel for ctw_sweep_rel's row-gather Srel route, or 0 (the point-
+    query route), gated as ti_pair_m_sel on ``srel``; ``window`` does not
+    move it (candidates past n_i are masked whatever the rows hold)."""
+    del window
+    maxc = int(np.asarray(data.n).max()) if data.n.size else 0
+    if (not isinstance(tab, stirling.StirlingTable) or tab.srel is None
+            or maxc == 0):
+        return 0
+    if maxc + 1 > min(tab.m_max, cap) or maxc > tab.n_max:
+        return 0
+    return maxc + 1
+
+
+def _window_product(base, tts, log_ha):
+    """log prod_{k=1}^{tt-1} (H a (base + k)) over each row's window ``tts``
+    (R, K) = lo..lo+K-1, relative to its value at tt = lo (a constant of
+    the row, which the Gumbel-max ignores): (tt - lo) log(H a) +
+    sum_{k=lo}^{tt-1} log(base + k).  The JAX sweep takes (tt - 1) log(H
+    a) + lgamma(base + tt) - lgamma(base + 1), the same up to that
+    constant, whose two large terms cost ~1e-4 of absolute error in f32
+    at check.c's bases."""
+    dt = base.dtype
+    rel = torch.cumsum(torch.log(base[:, None] + tts[:, :-1].to(dt)), dim=-1)
+    return ((tts - tts[:, :1]).to(dt) * log_ha[:, None]
+            + torch.cat([torch.zeros_like(rel[:, :1]), rel], dim=-1))
+
+
+def ctw_sweep_rel(gen, t, T, a, b, tab: Table, data: PYPData,
+                  window: int = 10, m_sel: int = 0):
+    """Windowed collapsed sweep over RELATIVE candidates t_i + [-w, w],
+    shifted to stay inside [1, n_i] (check.c:905-943, 915-918;
+    libstb_tpu/models/pyp.ctw_sweep_rel): O(2w+1) work a (chain, group)
+    whatever the counts.  The product term is summed over the window
+    only (``_window_product``), which keeps f32 on the card within a few
+    ulps.
+
+    ``m_sel`` > 0 (from ``ctw_m_sel``): Srel from the (group, category)
+    rows of a ``StirlingTable`` (``Srel_rows``, once a sweep) by gather.
+    Draws one (D, C*J, 2w+1) block of Gumbels."""
+    dt, dev = a.dtype, t.device
+    n = torch.as_tensor(data.n, device=dev)
+    H = torch.as_tensor(data.H, dtype=dt, device=dev)
+    J, D = data.n.shape
+    C = t.shape[0]
+    a_f = a[:, None].expand(C, J).reshape(-1)
+    b_f = b[:, None].expand(C, J).reshape(-1)
+    K = 2 * window + 1
+    step = torch.arange(K, device=dev)
+    stepf = step.to(dt)[None, :]
+    if m_sel:
+        srows = tab.Srel_rows(n.T.reshape(-1), m_sel).reshape(D, J, m_sel)
+    g = rng.gumbel(gen, (D, C * J, K), dt, dev)
+    safe_a = torch.clamp(a_f, min=1e-12)
+    log_b = torch.log(torch.clamp(b_f, min=1e-30))
+    t = t.clone()
+    for i in range(D):
+        ni = n[None, :, i].expand(C, J).reshape(-1)
+        hlog = torch.log(torch.clamp(H[i], min=1e-30))
+        ti = t[:, :, i].reshape(-1)
+        Tj = T.reshape(-1)
+        # candidate window [lo, lo + K - 1] kept inside [1, ni]
+        lo = torch.minimum(torch.clamp(ti - window, min=1),
+                           torch.clamp(ni - K + 1, min=1))
+        tts = lo[:, None] + step[None, :]
+        # log prod_{k=1}^{tt-1} H (b + (T - ti + k) a): base = (b + (T -
+        # ti) a) / a; a == 0: (tt - lo) log(H b), both relative to tt = lo
+        base = (b_f + (Tj - ti).to(dt) * a_f) / safe_a
+        cum = _window_product(base, tts, hlog + torch.log(safe_a))
+        cum0 = stepf * (hlog + log_b)[:, None]
+        cum = torch.where(a_f[:, None] > 0, cum, cum0)
+        if m_sel:
+            # tts past the row are > ni, masked below
+            idx = torch.clamp(tts - 1, max=m_sel - 1).reshape(C, J, K)
+            srel = torch.gather(srows[i][None].expand(C, J, m_sel), 2, idx)
+            srel = srel.reshape(C * J, K)
+        else:
+            srel = _srelq(tab, ni[:, None], tts, a_f[:, None])
+        lw = cum + srel
+        ok = (tts >= 1) & (tts <= ni[:, None])
+        lw = torch.where(ok, lw, -torch.inf)
+        pick = torch.argmax(lw + g[i], dim=-1)
+        tt = torch.gather(tts, 1, pick[:, None])[:, 0].to(t.dtype)
+        tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
+        T = (Tj + tt - ti).reshape(C, J)
+        t[:, :, i] = tt.reshape(C, J)
+    return t, T
+
+
+# ---------------------------------------------------------------------------
+# Histogrammed seating arrangements (HSA)
+# ---------------------------------------------------------------------------
+
+def init_hsa(data: PYPData, chains: int, device, smax: Optional[int] = None):
+    """Histogram seating state, one table of size n per occupied category:
+    hist (C, J, D, S+1) and T (C, J), int32, on ``device``; hist[c, j, i,
+    s] counts the tables of size s of category i in group j."""
+    if smax is None:
+        smax = int(data.n.max())
+    J, D = data.n.shape
+    h0 = np.zeros((J, D, smax + 1), np.int32)
+    jv, iv = np.nonzero(data.n)
+    h0[jv, iv, data.n[jv, iv]] = 1
+    hist = torch.as_tensor(h0, device=device).expand(
+        (chains,) + h0.shape).contiguous()
+    T = torch.as_tensor((data.n > 0).sum(axis=1).astype(np.int32),
+                        device=device).expand(chains, J).contiguous()
+    return hist, T
+
+
+def hsa_sweep(gen, hist, T, a, b, data: PYPData):
+    """Histogrammed seating-arrangement sweep, item by item (check.c's
+    SA/HSA samplers, check.c:716-842): unseat a customer of the item's
+    category (a table of size s with probability prop. to s h_s), reseat
+    it at an existing table (prop. to (s - a) h_s) or a new one (prop. to
+    (b + T a) H_i).
+
+    hist: (C, J, D, S+1) int32; T: (C, J).  The small-scale oracle, ~50
+    ops an item; ``hsa_sweep_pairs`` is the scale route.  Draws a (L, C,
+    S+1) and a (L, C, S+2) block of Gumbels.  Returns (hist, T)."""
+    dt, dev = a.dtype, hist.device
+    C = hist.shape[0]
+    S = hist.shape[-1] - 1
+    cats, grps = np.asarray(data.data_cat), np.asarray(data.data_grp)
+    L = cats.shape[0]
+    H = torch.as_tensor(data.H, dtype=dt, device=dev)
+    sf = torch.arange(S + 1, device=dev).to(dt)[None]
+    ge1 = sf >= 1
+    wjoin = sf - a[:, None]                  # (s - a), the join weight a table
+    rows = torch.arange(C, device=dev)
+    g1 = rng.gumbel(gen, (L, C, S + 1), dt, dev)
+    g2 = rng.gumbel(gen, (L, C, S + 2), dt, dev)
+    hist = hist.clone()
+    T = T.clone()
+    for l in range(L):
+        i, j = int(cats[l]), int(grps[l])
+        if data.n[j, i] <= 0:
+            continue
+        h = hist[:, j, i, :].clone()
+        # unseat: P(table size s) prop. to s h_s (>= 0, so no clamp)
+        lw = torch.where(ge1 & (h > 0), torch.log(sf * h), -torch.inf)
+        s_rm = torch.argmax(lw + g1[l], dim=-1)
+        h[rows, s_rm] -= 1
+        h[rows, torch.clamp(s_rm - 1, min=0)] += (s_rm > 1).to(h.dtype)
+        Tj = T[:, j] - (s_rm == 1).to(T.dtype)         # size-1 table gone
+        # reseat: existing prop. to (s - a) h_s, new prop. to (b + T a) H_i
+        lw2 = torch.where(ge1 & (h > 0), torch.log(torch.clamp(
+            wjoin * h, min=0.0)), -torch.inf)
+        lnew = torch.log(torch.clamp((b + Tj.to(dt) * a) * H[i], min=1e-30))
+        pick = torch.argmax(torch.cat([lw2, lnew[:, None]], dim=-1) + g2[l],
+                            dim=-1)
+        is_new = pick == S + 1
+        old = (~is_new).to(h.dtype)
+        s_join = torch.where(is_new, 0, pick)
+        h[rows, s_join] -= old
+        h[rows, torch.clamp(s_join + 1, max=S)] += old
+        h[:, 1] += is_new.to(h.dtype)
+        hist[:, j, i, :] = h
+        T[:, j] = Tj + is_new.to(T.dtype)
+    return hist, T
+
+
+def init_hsa_pairs(data: PYPData, chains: int, device, order=None,
+                   s_max: Optional[int] = None):
+    """Pair-major histogram state hp (C, P, s_max+1) with one table of size
+    n_p per occupied pair, and T (C, J), int32, on ``device``; ``order``
+    (from ti_pair_stages) sorts the pair axis for the staged sweep."""
+    jvec, ivec, nvec = ti_pair_layout(data)
+    if order is not None:
+        nvec = nvec[order]
+    if s_max is None:
+        s_max = int(nvec.max()) if len(nvec) else 1
+    P = len(nvec)
+    h0 = np.zeros((P, s_max + 1), np.int32)
+    h0[np.arange(P), nvec] = 1
+    hp = torch.as_tensor(h0, device=device).expand(
+        chains, P, s_max + 1).contiguous()
+    T = torch.as_tensor((data.n > 0).sum(axis=1).astype(np.int32),
+                        device=device).expand(chains, data.n.shape[0])
+    return hp, T.contiguous()
+
+
+def _hsa_pairs_rounds(u, hp, T, nvec, jvec, Hp, a_c, b_c, r0: int):
+    """Rounds r0, r0+1, ... of the pair-major HSA sweep over the pairs of
+    ``hp`` (C, p, S+1), one per leading entry of ``u`` (rounds, 2, C, p):
+    every pair with s < n_p unseats one customer and reseats it, each
+    categorical drawn by inverse CDF over a size-axis cumsum; same-group
+    pairs read the round-start total T for the new-table weight."""
+    dt = a_c.dtype
+    s_max = hp.shape[-1] - 1
+    svec = torch.arange(s_max + 1, device=hp.device).to(dt)
+    wexist = torch.clamp(svec[None, None, :] - a_c[:, :, None], min=0.0)
+    live = nvec >= 1
+    for k in range(u.shape[0]):
+        valid = ((r0 + k < nvec) & live)[None]          # (1, p)
+        # unseat: P(size s) = s h_s / n_p
+        c1 = torch.cumsum(svec * hp.to(dt), dim=-1)
+        v1 = (u[k, 0] * c1[..., -1])[..., None]
+        s_rm = torch.clamp(torch.searchsorted(c1, v1)[..., 0], 1, s_max)
+        single = s_rm == 1                              # the table vanished
+        T_loc = T[:, jvec].to(dt) - single.to(dt)
+        # reseat: existing P(s) prop. to (s - a) h_s, new prop. to
+        # (b + T a) H_p, on the histogram after the unseat
+        # (a pair that is not valid keeps its histogram: its deltas are 0)
+        vi = valid.expand_as(s_rm)
+        h2 = hp.scatter_add(-1, s_rm[..., None], -vi.to(hp.dtype)[..., None])
+        h2.scatter_add_(-1, torch.clamp(s_rm - 1, min=0)[..., None],
+                        ((s_rm > 1) & vi).to(hp.dtype)[..., None])
+        c2 = torch.cumsum(wexist * h2.to(dt), dim=-1)
+        tot2 = c2[..., -1]
+        wnew = (b_c + T_loc * a_c) * Hp[None, :]
+        v2 = u[k, 1] * (tot2 + wnew)
+        is_new = v2 >= tot2
+        s_jn = torch.clamp(torch.searchsorted(c2, v2[..., None])[..., 0],
+                           1, s_max - 1)
+        ex = (~is_new & valid).to(hp.dtype)[..., None]
+        h2.scatter_add_(-1, s_jn[..., None], -ex)
+        h2.scatter_add_(-1, (s_jn + 1)[..., None], ex)
+        h2[..., 1] += (is_new & valid).to(hp.dtype)
+        hp = h2
+        dT = (is_new.to(T.dtype) - single.to(T.dtype)) * valid.to(T.dtype)
+        T = T.index_add(1, jvec, dT)
+    return hp, T
+
+
+def hsa_sweep_pairs_staged(gen, hp, T, a, b, data: PYPData, jvec, ivec,
+                           nvec, stages):
+    """Staged pair-major HSA sweep (check.c:766-842 semantics;
+    libstb_tpu/models/pyp.hsa_sweep_pairs_staged): ``hp`` (C, P, s_max+1)
+    in ``ti_pair_stages(skip_first=False)`` order; stage (p, r0, r1) runs
+    rounds r0..r1-1 over the first p pairs; the size axis of ``hp`` is
+    JAX's static ``s_max``.  sum_s s h_s = n_p holds exactly.  Draws one
+    (r1 - r0, 2, C, p) block of Uniform[1e-6, 1) a stage.  Returns (hp,
+    T)."""
+    if stages and stages[0][1] != 0:
+        raise ValueError(
+            "hsa stages must be built with ti_pair_stages(skip_first="
+            "False) -- HSA resamples every item")
+    dt, dev = a.dtype, hp.device
+    jvec, ivec, nvec = (_dev_vec(x, dev) for x in (jvec, ivec, nvec))
+    Hp = torch.as_tensor(data.H, dtype=dt, device=dev)[ivec]
+    C = hp.shape[0]
+    hp = hp.clone()
+    for (p, r0, r1) in stages:
+        u = rng.uniform_min(gen, 1e-6, (r1 - r0, 2, C, p), dt, dev)
+        hps, T = _hsa_pairs_rounds(u, hp[:, :p], T, nvec[:p], jvec[:p],
+                                   Hp[:p], a[:, None], b[:, None], r0)
+        hp[:, :p] = hps
+    return hp, T
+
+
+def hsa_sweep_pairs(gen, hp, T, a, b, data: PYPData, layout=None,
+                    order=None, stages=None, min_pairs: int = 512):
+    """Wrapper building the count-sorted layout and stages for
+    hsa_sweep_pairs_staged; ``hp``'s pair axis must already be in
+    ``order`` (init_hsa_pairs with the same order).  Approximate (the
+    round-start T, as the cat-mode schedule), so it warns once."""
+    global _warned_hsa_pairs
+    if not _warned_hsa_pairs:
+        _warned_hsa_pairs = True
+        yaps.message(
+            "hsa_sweep_pairs: same-group pairs of a round read the "
+            "round-start group total T -- an approximate kernel; do not "
+            "use for acceptance runs (use hsa_sweep)")
+    if layout is None:
+        layout = ti_pair_layout(data)
+    jvec, ivec, nvec = layout
+    if order is None or stages is None:
+        order, stages = ti_pair_stages(nvec, skip_first=False,
+                                       min_pairs=min_pairs)
+    return hsa_sweep_pairs_staged(gen, hp, T, a, b, data, jvec[order],
+                                  ivec[order], nvec[order], stages)

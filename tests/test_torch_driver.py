@@ -6,7 +6,12 @@ the acceptance gate compares against the reference binary: per-chain
 posterior means as replicates, |difference| within 2 combined Monte-Carlo
 SE plus floors of 0.05 (E[T_j]), 0.01 (E[a]) and 0.05 (E[b])
 (oracle_compare.py:79-89)."""
+import contextlib
 import dataclasses
+import io
+import os
+import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -119,8 +124,6 @@ def test_gibbs_config_is_a_copy():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sampler="CT"), "item 9"), (dict(sampler="CTW"), "item 9"),
-    (dict(sampler="HSA"), "item 9"),
     (dict(collect_traces=True), "items 6 and 11")])
 def test_unported_options_raise(kw, item):
     data = tpyp.crp_generate(0, 1, 4, 6, 0.5, 1.0)
@@ -128,6 +131,131 @@ def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tdriver.run_gibbs(rng.generator(0, "cpu"), data, grid, 2, 0.5, 1.0,
                           tdriver.GibbsConfig(iters=2, **kw))
+
+
+def test_unknown_sampler_raises():
+    data = tpyp.crp_generate(0, 1, 4, 6, 0.5, 1.0)
+    grid = tag.make_grid(16, 16, g=8, device="cpu")
+    for run in (tdriver.run_gibbs, tdriver.run_gibbs_timed):
+        with pytest.raises(ValueError, match="unknown sampler"):
+            run(rng.generator(0, "cpu"), data, grid, 2, 0.5, 1.0,
+                tdriver.GibbsConfig(iters=2, sampler="XY"))
+
+
+# the check.c samplers at the gate's data and hyper cycles (exact odds:
+# the pair of runs compares CT, CTW and HSA, which have no legacy form)
+CHECK = dict(iters=300, bcycle=2, acycle=5, scale=20.0)
+
+
+@pytest.mark.parametrize("sampler", ["CT", "CTW", "HSA"])
+def test_check_samplers_match_jax_moments(sampler):
+    """run_gibbs(sampler=CT | CTW | HSA) with (a, b) moves: the port's
+    moments inside the gate's bands of the JAX driver's run, the state's
+    invariants, and the HSA histogram returned (None otherwise)."""
+    cfg = dict(CHECK, sampler=sampler, window=3)
+    data = tpyp.crp_generate(7, 2, 20, 40, 0.5, 1.0)
+    n_max = max(int(data.N.max()) + 2, 16)
+    jout = jdriver.run_gibbs(
+        jax.random.key(8), data,
+        jag.make_grid(n_max, n_max, g=96, dtype=jnp.float64), 64, 0.5, 1.0,
+        jdriver.GibbsConfig(**cfg))
+    tout = tdriver.run_gibbs(
+        rng.generator(8, "cpu"), data,
+        tag.make_grid(n_max, n_max, g=96, dtype=torch.float64, device="cpu"),
+        64, 0.5, 1.0, tdriver.GibbsConfig(**cfg))
+    for k in ("tave", "Tave", "aave", "bave", "t", "T", "a", "b"):
+        assert tuple(tout[k].shape) == tuple(np.shape(jout[k])), k
+    _within_bands(np.asarray(jout["Tave"]), tout["Tave"].numpy(), 0.05)
+    _within_bands(np.asarray(jout["aave"]), tout["aave"].numpy(), 0.01)
+    _within_bands(np.asarray(jout["bave"]), tout["bave"].numpy(), 0.05)
+    t, T = tout["t"].numpy(), tout["T"].numpy()
+    np.testing.assert_array_equal(t.sum(-1), T)
+    assert ((t >= (data.n > 0)) & (t <= data.n)).all()
+    if sampler == "HSA":
+        hist = tout["hist"].numpy()
+        assert hist.shape == np.shape(jout["hist"])
+        np.testing.assert_array_equal(hist.sum(-1), t)
+        np.testing.assert_array_equal(
+            (hist * np.arange(hist.shape[-1])).sum(-1),
+            np.broadcast_to(data.n, t.shape))
+    else:
+        assert tout["hist"] is None and jout["hist"] is None
+
+
+def test_hsa_matches_ct_posterior():
+    """tests/test_hsa.py: HSA and CT at fixed (a, b) agree on E[T] within
+    3 combined SE + 0.05 (port against port)."""
+    data = tpyp.crp_generate(1, 1, 15, 40, 0.5, 10.0)
+    grid = tag.make_grid(44, 44, g=48, dtype=torch.float64, device="cpu")
+    means = {}
+    for s in ("CT", "HSA"):
+        out = tdriver.run_gibbs(rng.generator(2, "cpu"), data, grid, 24, 0.5,
+                                10.0, tdriver.GibbsConfig(iters=240,
+                                                          sampler=s))
+        Tave = out["Tave"].numpy()[:, 0]
+        means[s] = (Tave.mean(), Tave.std(ddof=1) / np.sqrt(len(Tave)))
+    band = 3 * np.hypot(means["CT"][1], means["HSA"][1]) + 0.05
+    assert abs(means["CT"][0] - means["HSA"][0]) < band, (means, band)
+
+
+def test_run_gibbs_timed_count_mode_and_alignment():
+    """Count mode: iters_done == iters with the last chunk clamped; the
+    chunk rounds up to lcm(bcycle, acycle) = 6 (4 asked); progress reports
+    every post-burn-in chunk; the posterior mean agrees loosely with
+    run_gibbs's (tests/test_models.py's rtol 0.15)."""
+    data = tpyp.crp_generate(7, 2, 5, 25, 0.5, 1.0)
+    grid = tag.make_grid(64, 32, g=100, dtype=torch.float64, device="cpu")
+    cfg = tdriver.GibbsConfig(iters=40, burnin=10, sampler="CT", bcycle=2,
+                              acycle=3, scale=5.0)
+    seen = []
+    out = tdriver.run_gibbs_timed(
+        rng.generator(0, "cpu"), data, grid, 64, 0.5, 1.0, cfg, chunk=4,
+        progress=lambda done, ms, rm: seen.append((done, ms, rm)))
+    assert out["iters_done"] == 40 and out["burnin_done"] == 6
+    assert [d for d, _, _ in seen] == [12, 18, 24, 30, 36, 40]
+    assert all(ms >= 0 and set(rm) == {"Tave_mean", "aave_mean",
+                                       "bave_mean"} for _, ms, rm in seen)
+    np.testing.assert_allclose(seen[-1][2]["Tave_mean"],
+                               float(out["Tave_mean"].sum()), rtol=1e-12)
+    assert 0.01 <= float(out["aave_mean"]) <= 0.98
+    ref = tdriver.run_gibbs(rng.generator(1, "cpu"), data, grid, 64, 0.5,
+                            1.0, cfg)
+    np.testing.assert_allclose(float(out["Tave_mean"].sum()),
+                               float(ref["Tave_mean"].sum()), rtol=0.15)
+
+
+@pytest.mark.parametrize("sampler", ["CT", "HSA", "TI"])
+def test_run_gibbs_timed_budget_mode(sampler):
+    """'-C Nms' / '-B Nms': the clock stops the run; the state carried
+    across chunks (the HSA histogram included) keeps its invariants."""
+    data = tpyp.crp_generate(7, 2, 5, 25, 0.5, 1.0)
+    grid = tag.make_grid(64, 32, g=100, dtype=torch.float64, device="cpu")
+    cfg = tdriver.GibbsConfig(iters=10 ** 6, sampler=sampler, bcycle=2,
+                              acycle=2, scale=5.0)
+    out = tdriver.run_gibbs_timed(rng.generator(0, "cpu"), data, grid, 16,
+                                  0.5, 1.0, cfg, iter_ms=300.0,
+                                  burnin_ms=60.0, chunk=8)
+    assert 8 <= out["iters_done"] < 10 ** 6 and out["iters_done"] % 8 == 0
+    assert out["elapsed_ms"] >= 300.0
+    assert out["burnin_done"] is not None
+    assert out["burnin_done"] < out["iters_done"]
+    assert torch.isfinite(out["Tave_mean"]).all()
+    t, T = out["t"], out["T"]
+    assert torch.equal(t.sum(-1, dtype=torch.int32), T)
+    assert ((t >= torch.as_tensor(data.n > 0).int())
+            & (t <= torch.as_tensor(data.n))).all()
+
+
+def test_run_gibbs_timed_budget_in_burnin():
+    """A budget spent inside burn-in reports the last chunk's means."""
+    data = tpyp.crp_generate(7, 1, 5, 20, 0.5, 1.0)
+    grid = tag.make_grid(32, 32, g=16, dtype=torch.float64, device="cpu")
+    out = tdriver.run_gibbs_timed(
+        rng.generator(0, "cpu"), data, grid, 4, 0.5, 1.0,
+        tdriver.GibbsConfig(iters=10 ** 6, sampler="CT"), iter_ms=1.0,
+        burnin_ms=10 ** 7, chunk=2)
+    assert out["iters_done"] == 2 and out["burnin_done"] == 0
+    assert torch.isfinite(out["Tave"]).all()
 
 
 def test_entry_step_runs():
@@ -153,3 +281,31 @@ def test_convert_data_and_state():
     assert t.dtype == T.dtype == torch.int32
     assert a.dtype == torch.float64 and b.dtype == torch.float32
     np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("argv", [
+    ["-C", "40", "-R", "2", "--samplers", "SA,TI,CT,CTW,HSA", "-v"],
+    ["-C", "250ms", "-B", "50ms", "-R", "2", "--samplers", "SA,CT,HSA"],
+    ["-C", "24", "-R", "1", "-H", "2", "-I", "4", "-A", "-p", "8",
+     "--samplers", "HSA,CTW"]])
+def test_check_cli_runs(argv):
+    """cli/check_torch.py on the CPU: one report line a sampler with E[T]
+    and its stderr, in count and in wall-clock mode; the running means
+    (-p) and the ARS telemetry (-A with -H)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "cli"))
+    import check_torch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check_torch.main(["--device", "cpu", "-N", "20", "--chains", "8",
+                          *argv])
+    text = buf.getvalue()
+    names = argv[argv.index("--samplers") + 1].split(",")
+    for name in names:
+        m = re.search(rf"^  {name} *: E\[T\] = *([0-9.]+) \+- ([0-9.]+)", text,
+                      re.M)
+        assert m and 1.0 <= float(m.group(1)) <= 20.0, text
+    if "ms" in argv[1]:
+        assert len(re.findall(r"iters in \d+ms\]", text)) == len(names)
+    if "-A" in argv:
+        assert "ARS neval/call" in text and "p: iter" in text

@@ -97,6 +97,22 @@ def test_gate_reference_matches_crp_generate():
             assert len(r[k]["mean"]) == 1 and r[k]["se"][0] > 0
 
 
+def test_check_reference_matches_crp_generate():
+    """tests/data/torch_check_ref.json (tools/torch_check_ref.py): the data
+    of every sampler's run equals the port's crp_generate, and each moment
+    has its mean and a positive SE."""
+    ref = json.loads((ROOT / "tests" / "data" /
+                      "torch_check_ref.json").read_text())
+    assert sorted(ref["samplers"]) == ["CT", "CTW", "HSA"]
+    assert ref["config"]["window"] == 10 and ref["chains"] == 256
+    for r in ref["samplers"].values():
+        data = tpyp.crp_generate(r["seed"], *ref["data_args"])
+        np.testing.assert_array_equal(data.n, np.asarray(r["n"]))
+        for k in ("T", "a", "b"):
+            assert len(r[k]["mean"]) == len(r[k]["se"]) == 1
+            assert r[k]["se"][0] > 0
+
+
 @pytest.mark.parametrize("cls", ["TableConfig", "SamplerConfig"])
 def test_config_copy_equal(cls, monkeypatch):
     def fields(c):
