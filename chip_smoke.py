@@ -78,19 +78,47 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      and one CTW sweep under the card's draws by both V / Srel routes
      (equal) and through the same sweeps on the CPU in f64 on a plain-f64
      table (equal in all but at most 2 of 32 chains); one profiled sweep
-     of each (kernels, device-busy share).
+     of each (kernels, device-busy share);
+ 13. traces and checkpoint/resume at the gate's configuration, seed 7, on
+     a K1 grid: (a) run_gibbs(collect_traces=True), 1000 iterations:
+     traces (iters, 64), a_rhat and b_rhat below 1.1, 0 < ESS <= the kept
+     draws x 1.5, the moments inside phase 4's bands; (b) 100 iterations,
+     checkpoint.save of the state and the CUDA generator, load onto the
+     card, 100 more through the driver's chunk runner: t, T, a, b equal to
+     one straight 200-iteration run bitwise;
+ 14. the HPYP model: (a) run_hpyp (f32, K1 grid, 256 chains, 1000
+     iterations, hyper cycle 2) on the Quick-start data against the JAX
+     package's CPU-f64 moments in tests/data/torch_hpyp_ref.json (E[T1_j],
+     E[T0], E[a1], E[b1], E[a0], E[b0]; phase 4's bands), the state's
+     invariants exact; (b) check.c's MAXDATA (phase 12's data, 32 chains,
+     100 iterations, hyper cycle 5) from make_grid(454, 454, g=32), which
+     run_hpyp must grow through K1 to cover the level-0 bound (5761 + 1),
+     the grown grid held to the f64 plain fill on three discounts, the
+     invariants exact, ms an iteration, one profiled iteration;
+ 15. NGG and precision: (a) ngg_table, ngg_ratio_table (recurrence,
+     quadrature), the five saddle points and ngg_quadrature_log in f64 on
+     the card against the JAX f64 values in tests/data/torch_ngg_ref.json
+     (rtol 1e-10; the tables within their condition-number bound), at
+     cli/ngg.py's (n, k) grid and at 256 workload points; (b)
+     cli/ngg_torch.py's table mode, then its --chains 100000 workload
+     (the saddle representations agree within 0.05; saddle-evals/s, one
+     profiled pass); (c) cli/precision_torch.py at N = 10000, M = 4000:
+     ratio/f32's error below log/f32's.
 
-The second-to-last line is a JSON object with each kernel's launches
-(summed over the paths of phases 3, 7, 9, 10, 11 and 12, each driven with
+Every time is printed beside the card's name and power limit.  The
+second-to-last line is a JSON object with each kernel's launches (summed
+over the paths of phases 3, 7, 9, 10, 11, 12, 13 and 14, each driven with
 the counts set to 0 just before it; "launches_by_path" splits them), error
 and times; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,6 +127,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GATE_REF = os.path.join(ROOT, "tests", "data", "torch_gate_ref.json")
 CHECK_REF = os.path.join(ROOT, "tests", "data", "torch_check_ref.json")
+HPYP_REF = os.path.join(ROOT, "tests", "data", "torch_hpyp_ref.json")
+NGG_REF = os.path.join(ROOT, "tests", "data", "torch_ngg_ref.json")
 # the ARS run of phase 9: one of the gate's seeds at half the gate's depth (an
 # ARS iteration costs 44-51 ms on an H100, 2000 of them ~100 s)
 ARS_SEED, ARS_ITERS = "7", 1000
@@ -1065,10 +1095,12 @@ CHECKC_DATA = (1, 100, 20, 1000, 0.5, 10.0)
 CHECKC_CHAINS, CHECKC_SWEEPS, CHECKC_WINDOW = 32, 4, 10
 
 
-def profile_sweep(fn):
+def profile_sweep(fn, top=0):
     """(device operations, device-busy ms, wall ms) of one call of ``fn``
     under torch.profiler (kernels, copies and fills on the one stream),
-    or None where the profiler sees no device."""
+    or None where the profiler sees no device; with ``top`` also the
+    ``top`` operators by the device time of their own kernels, as (name,
+    ms, calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1083,7 +1115,13 @@ def profile_sweep(fn):
     if not kernels:
         return None
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return len(kernels), busy, wall
+    if not top:
+        return len(kernels), busy, wall
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    return len(kernels), busy, wall, sorted(ops, key=lambda o: -o[1])[:top]
 
 
 def phase12_checkc(dev, sc, stirling, pyp, card):
@@ -1249,6 +1287,347 @@ def phase12_checkc(dev, sc, stirling, pyp, card):
     return launches
 
 
+# phase 13: the gate's configuration at half its depth with traces (as phase
+# 9 runs ARS), then RESUME_K iterations, a checkpoint, RESUME_K more
+TRACE_SEED, TRACE_ITERS, RESUME_K = "7", 1000, 100
+# phase 14b: check.c's MAXDATA through run_hpyp (32 chains, 100 iterations,
+# hyper moves every 5); the start grid's hard bounds let ensure_grid grow it
+HPYP_CHECKC_CHAINS, HPYP_CHECKC_CFG = 32, dict(iters=100, hyper_cycle=5)
+HPYP_START, HPYP_HARD, HPYP_G = 454, 8192, 32
+HPYP_SEED = 14
+HPYP_FLOORS = dict(T1=0.05, T0=0.05, a1=0.01, b1=0.05, a0=0.01, b0=0.05)
+HPYP_MOMENTS = dict(T1="T1ave", T0="T0ave", a1="a1ave", b1="b1ave",
+                    a0="a0ave", b0="b0ave")
+NGG_CHAINS = 100000            # BASELINE.json:11, the NGG workload
+
+
+def phase13_traces(dev, sc, agrid, driver, pyp, card, ref):
+    """collect_traces at the gate's configuration, and a checkpointed run
+    resumed against the straight run; returns K1's launches on the path."""
+    from libstb_tpu_torch.utils import checkpoint
+
+    t0 = phase(f"13 traces and checkpoint/resume: run_gibbs(collect_traces="
+               f"True), seed {TRACE_SEED}, {TRACE_ITERS} iterations; "
+               f"{RESUME_K} + {RESUME_K} iterations through a checkpoint vs "
+               f"one straight run")
+    reset_launches(sc)
+    cfg = driver.GibbsConfig(**dict(ref["config"], iters=TRACE_ITERS,
+                                    collect_traces=True))
+    ok, run_s, out = gate_seed(dev, agrid, driver, pyp, ref, TRACE_SEED, cfg)
+    C = ref["chains"]
+    kept = cfg.iters - cfg.resolved_burnin()
+    for x in ("a", "b"):
+        tr = out[f"{x}_trace"]
+        check(tuple(tr.shape) == (cfg.iters, C),
+              f"{x}_trace shape {tuple(tr.shape)}")
+        check(torch.equal(tr[-1], out[x]), f"{x}_trace[-1] != the final {x}")
+        r, e = float(out[f"{x}_rhat"]), float(out[f"{x}_ess"])
+        check(np.isfinite(r) and r < 1.1, f"{x}_rhat {r:.4g} (< 1.1)")
+        check(0 < e <= kept * C * 1.5,
+              f"{x}_ess {e:.4g} (in (0, {kept * C * 1.5:g}])")
+    check(ok, "traced run: a posterior moment is outside its band")
+    print(f"   a_rhat {float(out['a_rhat']):.5f} b_rhat "
+          f"{float(out['b_rhat']):.5f} a_ess {float(out['a_ess']):.1f} "
+          f"b_ess {float(out['b_ess']):.1f} (of {kept} x {C} kept draws); "
+          f"run_gibbs {1e3 * run_s / cfg.iters:.3f} ms an iteration "
+          f"[{card}]")
+
+    # resume: k iterations, save, load, k more == one straight 2k run
+    data, grid = out["data"], out["grid"]
+    k = RESUME_K
+    scfg = driver.GibbsConfig(**dict(ref["config"], iters=2 * k))
+    seed = int(TRACE_SEED) + 10
+    t_run = time.perf_counter()
+    straight = driver.run_gibbs(torch.Generator(device=dev).manual_seed(seed),
+                                data, grid, C, ref["a0"], ref["b0"], scfg)
+    torch.cuda.synchronize()
+    straight_s = time.perf_counter() - t_run
+    grid, plan = driver._prepare(data, grid, scfg)
+    half = dataclasses.replace(scfg, iters=k)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    first = driver._run_chunk(gen, data, grid, driver._init(
+        data, grid, C, ref["a0"], ref["b0"], plan), half, plan, 0)
+    keys = ("t", "T", "hist", "a", "b")
+    with tempfile.TemporaryDirectory() as d:
+        t_run = time.perf_counter()
+        path = checkpoint.save(os.path.join(d, "run"),
+                               {"state": {x: first[x] for x in keys},
+                                "gen": gen}, meta={"iters_done": k})
+        ck, meta = checkpoint.load(path, device=dev)
+        ck_s = time.perf_counter() - t_run
+        ck_bytes = os.path.getsize(path)
+    del first, gen
+    check(meta == {"iters_done": k} and ck["gen"].device.type == "cuda"
+          and ck["state"]["t"].device.type == "cuda",
+          "the checkpoint did not come back on the card")
+    resumed = driver._run_chunk(ck["gen"], data, grid, ck["state"], half,
+                                plan, 0)
+    torch.cuda.synchronize()
+    for x in ("t", "T", "a", "b"):
+        check(resumed[x].dtype == straight[x].dtype
+              and torch.equal(resumed[x], straight[x]),
+              f"resume: {x} differs from the straight {2 * k}-iteration run")
+    launches = dict(sc.LAUNCHES)
+    check(launches["fill_grid"] >= 1, "phase 13 did not launch K1")
+    print(f"   resume: {k} + {k} iterations through a checkpoint "
+          f"({ck_bytes} bytes, save + load {1e3 * ck_s:.1f} ms) equal the "
+          f"straight run bitwise in t, T, a, b; straight run "
+          f"{1e3 * straight_s / (2 * k):.3f} ms an iteration [{card}]")
+    print(f"   launches on the path: {launches}")
+    done(t0)
+    return launches
+
+
+def hpyp_bands(ref, out):
+    """The nine HPYP moments (E[T1_j], E[T0], E[a1], E[b1], E[a0], E[b0])
+    against the reference: |difference| within 2 combined MC-SE plus the
+    floors (0.05 for table counts and concentrations, 0.01 for
+    discounts).  Prints each; returns whether all hold."""
+    ok = True
+    for name, src in HPYP_MOMENTS.items():
+        vals = out[src].double().cpu().numpy().reshape(ref["chains"], -1)
+        om = vals.mean(0)
+        osd = vals.std(0, ddof=1) / np.sqrt(len(vals))
+        rm = np.asarray(ref["moments"][name]["mean"])
+        rs = np.asarray(ref["moments"][name]["se"])
+        band = 2 * np.sqrt(rs ** 2 + osd ** 2) + HPYP_FLOORS[name]
+        good = bool(np.all(np.abs(rm - om) <= band))
+        ok &= good
+        print(f"   HPYP E[{name}]: ref={np.round(rm, 4)} "
+              f"ours={np.round(om, 4)} band={np.round(band, 4)} -> "
+              f"{'OK' if good else 'MISMATCH'}")
+    return ok
+
+
+def check_hpyp_state(out, data, what):
+    """Exact invariants of an HPYP state: 1 <= t1 <= n on occupied pairs
+    (0 elsewhere), t0 <= n0 = sum_j t1, t0 >= 1 where n0 > 0, T1 and T0
+    their sums."""
+    t1, T1, t0, T0 = (out[k] for k in ("t1", "T1", "t0", "T0"))
+    check_state(t1, T1, data.n, f"{what} level 1")
+    n0 = t1.sum(1, dtype=torch.int32)
+    check(bool(((t0 <= n0) & (t0 >= 0)).all()), f"{what}: t0 > n0")
+    check(bool(torch.where(n0 > 0, t0 >= 1, t0 == 0).all()),
+          f"{what}: t0 < 1 on an occupied category, or not 0 off one")
+    check(bool(torch.equal(t0.sum(-1, dtype=torch.int32), T0)),
+          f"{what}: T0 != sum_i t0_i")
+
+
+def phase14_hpyp(dev, sc, agrid, pyp, card, ref):
+    """The HPYP model on the card: the gate against the JAX CPU-f64
+    moments, then check.c scale with the grid grown through K1; returns
+    K1's launches on the path."""
+    from libstb_tpu_torch.models import hpyp
+
+    t0 = phase(f"14a HPYP gate: run_hpyp (f32, {ref['chains']} chains, "
+               f"{ref['config']}) vs the JAX CPU-f64 moments")
+    reset_launches(sc)
+    data = pyp.crp_generate(*ref["data_args"])
+    check(np.array_equal(data.n, np.asarray(ref["n"])),
+          "HPYP gate: crp_generate differs from the reference data")
+    grid = agrid.make_grid(ref["grid_n"], ref["grid_n"], g=ref["grid_g"],
+                           device=dev)
+    cfg = hpyp.HPYPConfig(**ref["config"])
+    gen = torch.Generator(device=dev).manual_seed(HPYP_SEED)
+    st = ref["starts"]
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    out = hpyp.run_hpyp(gen, data, grid, ref["chains"], st["a1"], st["b1"],
+                        st["a0"], st["b0"], cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    ok = hpyp_bands(ref, out)
+    check_hpyp_state(out, data, "HPYP gate")
+    check(ok, "HPYP gate: a posterior moment is outside its band")
+    e_v, e_s = check_grid(sc, grid, "phase 14a")
+    print(f"   run_hpyp {1e3 * run_s / cfg.iters:.3f} ms an iteration "
+          f"({run_s:.3f} s / {cfg.iters}); grid {tuple(grid.srel.shape)} V "
+          f"rel {e_v:.3g}, scaled |dSrel| {e_s:.3g} [{card}]")
+    del grid, out
+    done(t0)
+
+    C = HPYP_CHECKC_CHAINS
+    cfg = hpyp.HPYPConfig(**HPYP_CHECKC_CFG)
+    t0 = phase(f"14b HPYP at check.c scale: crp_generate{CHECKC_DATA}, {C} "
+               f"chains, {HPYP_CHECKC_CFG}, from make_grid({HPYP_START}, "
+               f"{HPYP_START}, g={HPYP_G}) grown through K1")
+    data = pyp.crp_generate(*CHECKC_DATA)
+    n0_bound = int(data.n.sum(axis=0).max())
+    grid = agrid.make_grid(HPYP_START, HPYP_START, g=HPYP_G, device=dev,
+                           max_n=HPYP_HARD, max_m=HPYP_HARD)
+    torch.cuda.synchronize()
+    grown, ensure = [], agrid.ensure_grid
+
+    def timed_ensure(*args, **kw):
+        t_g = time.perf_counter()
+        g = ensure(*args, **kw)
+        torch.cuda.synchronize()
+        grown.append((g, time.perf_counter() - t_g))
+        return g
+
+    before = sc.LAUNCHES["fill_grid"]
+    gen = torch.Generator(device=dev).manual_seed(HPYP_SEED + 1)
+    agrid.ensure_grid = timed_ensure
+    try:
+        t_run = time.perf_counter()
+        out = hpyp.run_hpyp(gen, data, grid, C, 0.5, 10.0, 0.5, 10.0, cfg)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        agrid.ensure_grid = ensure
+    launches = dict(sc.LAUNCHES)
+    (big, grow_s), = grown
+    check(big.n_max >= n0_bound + 1 and big.m_max >= n0_bound + 1,
+          f"run_hpyp left the grid at ({big.n_max}, {big.m_max}) below the "
+          f"level-0 bound {n0_bound} + 1")
+    check(launches["fill_grid"] - before >= 1,
+          "run_hpyp's regrow did not launch K1")
+    check_hpyp_state(out, data, "HPYP check.c")
+    for x in ("T1ave", "T0ave", "a1ave", "b1ave", "a0ave", "b0ave"):
+        check(bool(torch.isfinite(out[x]).all()), f"HPYP check.c: {x}")
+    nbytes = sum(t.numel() * t.element_size() for t in (big.vtab, big.srel))
+    # the grown grid against the f64 plain fill on three discounts (2b's
+    # bounds)
+    pick = torch.tensor([0, HPYP_G // 2, HPYP_G - 1], device=dev)
+    v64, s64 = sc.fill_grid_ref(big.avec[pick].double(), big.n_max,
+                                big.m_max)
+    v_rel, s_abs, _ = fill_errors(big.vtab[pick], big.srel[pick], v64, s64)
+    del v64, s64
+    check(v_rel < 1e-4 and s_abs <= 5e-2,
+          f"grown grid: V rel {v_rel:.3g} (< 1e-4), |dSrel| {s_abs:.3g} "
+          "(<= 5e-2)")
+    iter_ms = 1e3 * (run_s - grow_s) / cfg.iters
+    print(f"   level-0 bound {n0_bound}: grid grown ({HPYP_START}, "
+          f"{HPYP_START}) -> ({big.n_max}, {big.m_max}) x {HPYP_G} "
+          f"discounts, {nbytes / 1e9:.3f} GB of f32 V + Srel, in "
+          f"{1e3 * grow_s:.1f} ms (K1 + host S1) [{card}]; V rel "
+          f"{v_rel:.3g}, |dSrel| {s_abs:.3g} on a = "
+          f"{big.avec[pick].tolist()}")
+    print(f"   run_hpyp {iter_ms:.3f} ms an iteration ({run_s:.3f} s for "
+          f"{cfg.iters}, the regrow excluded); E[T1] "
+          f"{float(out['T1ave_mean'].sum()):.2f} E[T0] "
+          f"{float(out['T0ave_mean']):.2f} E[a1] "
+          f"{float(out['a1ave'].mean()):.4f} E[a0] "
+          f"{float(out['a0ave'].mean()):.4f}; K1 launches "
+          f"{launches['fill_grid']} [{card}]")
+    # where an iteration's time goes: one iteration with both hyper moves
+    prof = profile_sweep(lambda: hpyp.run_hpyp(
+        gen, data, big, C, 0.5, 10.0, 0.5, 10.0,
+        hpyp.HPYPConfig(iters=1, hyper_cycle=1)), top=6)
+    if prof is None:
+        print("   the profiler saw no device kernels (not measured)")
+    else:
+        k, dev_ms, wall, top = prof
+        print(f"   one iteration under the profiler: {k} device operations, "
+              f"busy {dev_ms:.3f} ms of {wall:.3f} ms wall "
+              f"({100 * (1 - dev_ms / wall):.1f}% idle) [{card}]")
+        for name, ms_, calls in top:
+            print(f"     {ms_:9.3f} ms in {calls:5d} calls of {name}")
+    print(f"   launches on the path: {launches}")
+    done(t0)
+    return launches
+
+
+def phase15_ngg(dev, card, ref):
+    """The NGG subsystem in f64 on the card against the JAX f64 values,
+    the NGG workload at 10^5 chains, and the precision comparison."""
+    from libstb_tpu_torch.core import ngg
+    from libstb_tpu_torch.utils import metrics
+
+    sys.path.insert(0, os.path.join(ROOT, "cli"))
+    import ngg_torch
+    import precision_torch
+
+    t0 = phase("15a NGG vs JAX f64: ngg_table, ngg_ratio_table (recurrence, "
+               "quadrature), the five saddle points and the quadrature")
+    a, M = ref["a"], ref["M"]
+    eps, ulps, rtol = 2.0 ** -52, ref["kappa_ulps"], ref["rtol"]
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def t(x):
+        return torch.tensor(x, **f64)
+
+    S, kap = (np.asarray(ref["table"][k], np.float64) for k in ("S", "kappa"))
+    got = ngg.ngg_table(a, M, *ref["table"]["shape"], device=dev)
+    check(got.dtype == torch.float64 and got.device.type == "cuda",
+          "ngg_table is not f64 on the card")
+    got = got.cpu().numpy()
+    fin = np.isfinite(S)
+    check(np.array_equal(np.isneginf(got), np.isneginf(S))
+          and bool(np.isfinite(got[fin]).all()), "ngg_table -inf pattern")
+    bound = ulps * eps * (kap[fin] + np.abs(S[fin]))
+    worst = {"table": float(np.max(np.abs(got[fin] - S[fin]) / bound))}
+    R, rho = (np.asarray(ref["ratio_recurrence"][k]) for k in ("R", "rho"))
+    got = ngg.ngg_ratio_table(a, M, *ref["ratio_recurrence"]["shape"],
+                              method="recurrence", device=dev).cpu().numpy()
+    v = R != 0
+    check(np.array_equal(got == 0, R == 0), "ratio table zero pattern")
+    worst["ratio_recurrence"] = float(np.max(
+        np.abs(got[v] - R[v]) / np.abs(R[v]) / (ulps * eps * rho[v])))
+    Rq = np.asarray(ref["ratio_quadrature"]["R"])
+    got = ngg.ngg_ratio_table(a, M, *ref["ratio_quadrature"]["shape"],
+                              method="quadrature", device=dev).cpu().numpy()
+    v = Rq != 0
+    check(np.array_equal(got == 0, Rq == 0), "quadrature ratio zero pattern")
+    worst["ratio_quadrature"] = float(np.max(np.abs(got[v] - Rq[v])
+                                             / (rtol * np.abs(Rq[v]))))
+    for where, pts in ref["points"].items():
+        N, K = t(pts["N"]), t(pts["K"])
+        for fn in ("umax_log", "smax_log", "hmax_log", "hmax2_log",
+                   "gmax_log", "ngg_quadrature_log"):
+            want = np.asarray(pts[fn], np.float64)
+            got = getattr(ngg, fn)(a, M, N, K).cpu().numpy()
+            check(np.array_equal(np.isnan(got), np.isnan(want)),
+                  f"{fn} at the {where} points: NaN pattern differs")
+            ok = ~np.isnan(want)
+            worst[f"{fn}@{where}"] = float(np.max(
+                np.abs(got[ok] - want[ok]) / (rtol * np.abs(want[ok]))))
+    for k_, w in worst.items():
+        check(w <= 1.0, f"NGG {k_}: off by {w:.3g} x its bound")
+    print(f"   worst error / bound: {max(worst.values()):.3g} "
+          f"({max(worst, key=worst.get)}); bounds: rtol {rtol:g}, the "
+          f"tables {ulps} x 2^-52 x (kappa + |S|)")
+    done(t0)
+
+    t0 = phase(f"15b cli/ngg_torch.py (defaults, then --chains {NGG_CHAINS})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t_run = time.perf_counter()
+        ngg_torch.main(["--device", "cuda"])
+        table_s = time.perf_counter() - t_run
+    rows = [ln for ln in buf.getvalue().splitlines()
+            if len(ln.split()) == 9 and ln.split()[0].isdigit()]
+    check(len(rows) == 30, f"ngg_torch table mode printed {len(rows)} rows")
+    res = ngg_torch.main(["--device", "cuda", "--chains", str(NGG_CHAINS)])
+    check(res["worst"] < ngg_torch.AGREE, "NGG workload disagrees")
+    N, K = ngg_torch.workload_inputs(NGG_CHAINS, dev)
+    ev_ms = 1e3 * metrics.device_timer(ngg_torch.evaluate, a, M, N, K)
+    prof = profile_sweep(lambda: ngg_torch.evaluate(a, M, N, K))
+    idle = ("not measured" if prof is None else
+            f"{prof[0]} device operations, busy {prof[1]:.3f} ms of "
+            f"{prof[2]:.3f} ms wall ({100 * (1 - prof[1] / prof[2]):.1f}% "
+            "idle)")
+    print(f"   table mode {table_s:.2f} s (30 rows, six methods each); "
+          f"{NGG_CHAINS} chains: {res['evals_per_s']:.4g} saddle-evals/s "
+          f"({1e3 * res['seconds']:.3f} ms a pass, host clock; "
+          f"{ev_ms:.3f} ms by CUDA events, best of 3), agreement max "
+          f"{res['worst']:.3g} mean {res['mean']:.3g}; one pass under the "
+          f"profiler: {idle} [{card}]")
+    done(t0)
+
+    t0 = phase("15c cli/precision_torch.py (N = 10000, M = 4000)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = precision_torch.main(["--device", "cuda"])
+    errs, ms = res["errors"], res["ms"]
+    check(errs["ratio/f32"] < errs["log/f32"],
+          f"precision: ratio/f32 error {errs['ratio/f32']:.4g} is not below "
+          f"log/f32's {errs['log/f32']:.4g}")
+    for name in errs:
+        print(f"   {name:10s}: max|err| {errs[name]:.4g}, fill "
+              f"{ms[name]:.1f} ms (host clock, synchronized) [{card}]")
+    done(t0)
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -1404,13 +1783,20 @@ def main():
         paths["11"] = phase11_check(dev, sc, agrid, driver, pyp, card,
                                     json.load(f))
     paths["12"] = phase12_checkc(dev, sc, stirling, pyp, card)
+    paths["13"] = phase13_traces(dev, sc, agrid, driver, pyp, card, ref)
+    with open(HPYP_REF) as f:
+        paths["14"] = phase14_hpyp(dev, sc, agrid, pyp, card, json.load(f))
+    with open(NGG_REF) as f:
+        phase15_ngg(dev, card, json.load(f))
     # every kernel of a path was launched in that path's own run
     for path, names in (("3", ["fill_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
                         ("9", ["fill_grid"]),
                         ("10", ["fill_table", "fill_table_cols"]),
                         ("11", ["fill_grid"]),
-                        ("12", ["fill_table"])):
+                        ("12", ["fill_table"]),
+                        ("13", ["fill_grid"]),
+                        ("14", ["fill_grid"])):
         for name in names:
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")

@@ -1,20 +1,29 @@
 """libstb_tpu_torch -- the PyTorch/CUDA port of libstb_tpu.
 
-Runs the discount-grid Gibbs main path (the demo.c workload) on an NVIDIA
-GPU; the JAX package ``libstb_tpu`` stays beside it as the reference that
-tests/test_torch_*.py hold every ported function to.  This package imports
+Runs the discount-grid Gibbs main path (the demo.c workload), the
+single-table path, the check.c samplers, the HPYP model and the NGG
+subsystem on an NVIDIA GPU; the JAX package ``libstb_tpu`` stays beside it
+as the reference that tests/test_torch_*.py hold every ported function to.  This package imports
 ``torch`` and never ``jax`` or ``libstb_tpu``.
 
-  core.stirling     fill_rows (plain V/Srel fill), S1, asymptotes
+  core.stirling     StirlingTable, make / ensure / remake, fill_rows, S1,
+                    asymptotes
   core.agrid        discount-grid tables (make_grid / ensure_grid)
-  core.rng          uniform / gamma / loggamma draws from a torch.Generator
-  ops.stirling_cuda K1: the hand-written CUDA grid fill + its plain version
-  samplers.slice    chain-parallel slice sampler
-  samplers.hyper    sample_a / sample_b
-  models.pyp        CRP data gen + TI Gibbs sweeps
-  models.driver     run_gibbs (TI path)
+  core.rng          uniform / gamma / loggamma / gumbel draws from a
+                    torch.Generator (rng.Replay in tests)
+  core.special, sympoly, sapprox, lgcache   special functions and caches
+  core.ngg          NGG tables, ratio tables, saddle points, quadrature oracle
+  core.quadrature   tanh-sinh quadrature
+  ops.stirling_cuda K1-K3: the hand-written CUDA fills + their plain versions
+  samplers.slice, ars, hyper   the (a, b) moves
+  models.pyp        CRP data gen + the TI / CT / CTW / HSA sweeps
+  models.sa         the explicit-seating host oracle
+  models.driver     run_gibbs (traces, R-hat, ESS), run_gibbs_timed
+  models.hpyp       the two-level hierarchical PYP (run_hpyp)
+  parallel.mesh     rhat / ess / cross_chain_moments
   convert           carry JAX tables, data and chain state across
   entry             one composite Gibbs step + example arguments
-  utils             config, yaps logging (jax-free copies)
+  utils             config, yaps logging (jax-free copies), checkpoint,
+                    metrics
 """
 __version__ = "0.1.0"

@@ -1,3 +1,3 @@
-from . import driver, pyp
+from . import driver, hpyp, pyp
 
-__all__ = ["driver", "pyp"]
+__all__ = ["driver", "hpyp", "pyp"]

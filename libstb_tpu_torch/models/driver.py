@@ -8,8 +8,8 @@ JAX package compiles a run into one program (a lax.scan over
 iterations); here the iterations are a Python loop that enqueues each
 step's kernels on the device, and the host waits on the device only
 inside the slice sampler's per-try exit test.  Statistics accumulate on
-the device after burn-in.  Per-iteration traces are not ported yet
-(ROADMAP Queue 1).
+the device after burn-in; with ``collect_traces`` the per-iteration (a,
+b) traces and their split-R-hat / ESS come back too.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import agrid
+from ..parallel import mesh
 from ..samplers import hyper
 from . import pyp
 
@@ -56,15 +57,6 @@ class GibbsConfig:
         return self.burnin if self.burnin > 0 else self.iters // 2
 
 
-def _check_ported(cfg: GibbsConfig):
-    if cfg.sampler.upper() not in SAMPLERS:
-        raise ValueError(f"unknown sampler {cfg.sampler}")
-    if cfg.collect_traces:
-        raise NotImplementedError(
-            "collect_traces: traces, R-hat and ESS are ROADMAP Queue 1, "
-            "items 6 and 11")
-
-
 class _Plan(NamedTuple):
     """What a run builds once from its data, on the grid's device."""
     sampler: str
@@ -77,7 +69,8 @@ class _Plan(NamedTuple):
 def _prepare(data: pyp.PYPData, grid: agrid.AGridTable, cfg: GibbsConfig):
     """The grid grown to cover every query the run can make, and the
     run's plan."""
-    _check_ported(cfg)
+    if cfg.sampler.upper() not in SAMPLERS:
+        raise ValueError(f"unknown sampler {cfg.sampler}")
     n_req, m_req = agrid.required_dims(data.n)
     grid = agrid.ensure_grid(grid, n_req, m_req,
                              quit_on_bound=cfg.quit_on_bound)
@@ -129,13 +122,17 @@ def _sweep(gen, data, grid, state, cfg: GibbsConfig, plan: _Plan):
 def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
                cfg: GibbsConfig, plan: _Plan, burnin: int) -> dict:
     """``cfg.iters`` iterations from ``state`` (the cycle phases counted
-    from 0), the statistics of iterations >= ``burnin`` averaged."""
+    from 0), the statistics of iterations >= ``burnin`` averaged; with
+    ``cfg.collect_traces`` also the (iters, C) traces of a and b and the
+    split-R-hat and ESS of their part from ``burnin`` on.  The traces
+    draw nothing, so every other output is the same without them."""
     dt = grid.srel.dtype
     C = state["t"].shape[0]
     t_sum = torch.zeros(state["t"].shape, dtype=dt, device=grid.device)
     T_sum = torch.zeros(state["T"].shape, dtype=dt, device=grid.device)
     a_sum = torch.zeros_like(state["a"])
     b_sum = torch.zeros_like(state["b"])
+    a_tr, b_tr = [], []
     for it in range(cfg.iters):
         t, T, hist = _sweep(gen, data, grid, state, cfg, plan)
         a, b = state["a"], state["b"]
@@ -147,6 +144,9 @@ def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
                                T.to(dt), b[:, None].expand(T.shape),
                                kernel=cfg.kernel)[0]
         state = dict(t=t, T=T, hist=hist, a=a, b=b)
+        if cfg.collect_traces:
+            a_tr.append(a)
+            b_tr.append(b)
         if it >= burnin:
             t_sum += t
             T_sum += T
@@ -154,10 +154,18 @@ def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
             b_sum += b
     cnt = float(max(cfg.iters - burnin, 0))
     tave, Tave, aave, bave = (x / cnt for x in (t_sum, T_sum, a_sum, b_sum))
-    return dict(
+    out = dict(
         tave=tave, Tave=Tave, aave=aave, bave=bave,
         tave_mean=tave.mean(dim=0), Tave_mean=Tave.mean(dim=0),
         aave_mean=aave.mean(), bave_mean=bave.mean(), **state)
+    if cfg.collect_traces:
+        a_tr, b_tr = torch.stack(a_tr), torch.stack(b_tr)
+        out.update(a_trace=a_tr, b_trace=b_tr,
+                   a_rhat=mesh.rhat(a_tr[burnin:]),
+                   b_rhat=mesh.rhat(b_tr[burnin:]),
+                   a_ess=mesh.ess(a_tr[burnin:]),
+                   b_ess=mesh.ess(b_tr[burnin:]))
+    return out
 
 
 def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
@@ -166,7 +174,10 @@ def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
     posterior-mean stats (demo.c:493-519): time-averaged t, T (post
     burn-in) per chain, a/b averages, and their ensemble means in the
     "*_mean" entries, plus the final state (t, T, a, b, and the HSA
-    histogram ``hist``, None for the other samplers).
+    histogram ``hist``, None for the other samplers).  With
+    ``cfg.collect_traces``: ``a_trace`` / ``b_trace`` (iters, C) and
+    ``a_rhat``, ``b_rhat``, ``a_ess``, ``b_ess`` over the kept part
+    ``[burnin:]`` (parallel.mesh).
 
     The grid is grown up front (ensure_grid) to cover every query the run
     can make, as the JAX driver does.  ``gen``: a torch.Generator on the
@@ -214,7 +225,8 @@ def run_gibbs_timed(gen, data: pyp.PYPData, grid: agrid.AGridTable,
 
     def one_chunk(state, iters):
         return _run_chunk(gen, data, grid, state,
-                          dataclasses.replace(cfg, iters=iters), plan, 0)
+                          dataclasses.replace(cfg, iters=iters,
+                                              collect_traces=False), plan, 0)
 
     out = one_chunk(state, chunk)            # off the clock, discarded
     _sync(dev)

@@ -27,6 +27,9 @@ from libstb_tpu_torch.core import agrid as tag
 from libstb_tpu_torch.core import rng
 from libstb_tpu_torch.models import driver as tdriver
 from libstb_tpu_torch.models import pyp as tpyp
+from libstb_tpu_torch.samplers import hyper as thyper
+from test_torch_samplers import _sample_b_draws, _slice_draws
+from test_torch_sweeps import _cat_gumbels
 
 torch.set_num_threads(1)
 
@@ -123,14 +126,126 @@ def test_gibbs_config_is_a_copy():
                     iters=30, burnin=burnin).resolved_burnin())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(collect_traces=True), "items 6 and 11")])
-def test_unported_options_raise(kw, item):
-    data = tpyp.crp_generate(0, 1, 4, 6, 0.5, 1.0)
-    grid = tag.make_grid(16, 16, g=8, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        tdriver.run_gibbs(rng.generator(0, "cpu"), data, grid, 2, 0.5, 1.0,
-                          tdriver.GibbsConfig(iters=2, **kw))
+# -- collect_traces ----------------------------------------------------------
+
+class _JaxKeys:
+    """The keys a JAX run hands its sweeps and (a, b) moves, in call order
+    for each kind ("sweep", "b", "a"); the port's functions are wrapped so
+    that each call replays the draws its JAX counterpart made from its
+    key (tests/test_torch_sweeps.py, test_torch_samplers.py)."""
+
+    def __init__(self, **keys):
+        self._q = {k: iter(v) for k, v in keys.items()}
+
+    def next(self, kind):
+        return next(self._q[kind])
+
+    def patch(self, monkeypatch):
+        ct, sb, sa = tpyp.ct_sweep, thyper.sample_b, thyper.sample_a
+
+        def ct_sweep(gen, t, T, a, b, tab, data, tmax, **kw):
+            shape = (t.shape[0] * t.shape[1], tmax)
+            g = _cat_gumbels(self.next("sweep"), data.n.shape[1], shape)
+            return ct(rng.Replay([g]), t, T, a, b, tab, data, tmax, **kw)
+
+        def sample_b(gen, b0, N, T, a, shape, scale, **kw):
+            NC = np.broadcast_to(np.asarray(N), tuple(T.shape))
+            draws = _sample_b_draws(self.next("b"), b0.numpy(), NC,
+                                    T.numpy(), shape)
+            return sb(rng.Replay(draws), b0, N, T, a, shape, scale, **kw)
+
+        def sample_a(gen, a0, *args, **kw):
+            draws = _slice_draws(self.next("a"), tuple(a0.shape))
+            return sa(rng.Replay(draws), a0, *args, **kw)
+
+        monkeypatch.setattr(tpyp, "ct_sweep", ct_sweep)
+        monkeypatch.setattr(thyper, "sample_b", sample_b)
+        monkeypatch.setattr(thyper, "sample_a", sample_a)
+
+
+def _gibbs_keys(key, cfg):
+    """run_gibbs's keys: split(key, 4) an iteration into (carry, sweep, b,
+    a); the b and a keys are used on their cycles only."""
+    keys = dict(sweep=[], b=[], a=[])
+    for it in range(cfg.iters):
+        key, ks, kb, ka = jax.random.split(key, 4)
+        keys["sweep"].append(ks)
+        if it % cfg.bcycle == 0:
+            keys["b"].append(kb)
+        if it % cfg.acycle == 0:
+            keys["a"].append(ka)
+    return _JaxKeys(**keys)
+
+
+TRACED = dict(iters=24, burnin=6, bcycle=2, acycle=3, sampler="CT",
+              scale=20.0, collect_traces=True)
+
+
+def test_collect_traces_equal_under_jax_draws(monkeypatch):
+    """CT with (a, b) moves under the JAX run's own draws: t and T exactly
+    equal, the (iters, C) traces of a and b equal to f64 rounding (1e-10),
+    and split-R-hat and ESS of the kept part equal to 1e-10."""
+    data = tpyp.crp_generate(3, 2, 10, 30, 0.5, 5.0)
+    n_max = max(int(data.N.max()) + 2, 16)
+    cfg = jdriver.GibbsConfig(**TRACED)
+    key = jax.random.key(21)
+    jg = jag.make_grid(n_max, n_max, g=32, dtype=jnp.float64)
+    jout = jdriver.run_gibbs(key, data, jg, 6, 0.5, 5.0, cfg)
+    tg = convert.grid_from_numpy(
+        {k: np.asarray(getattr(jg, k)) for k in convert.GRID_ARRAYS},
+        {k: getattr(jg, k) for k in convert.GRID_STATICS}, "cpu")
+    _gibbs_keys(key, cfg).patch(monkeypatch)
+    tout = tdriver.run_gibbs(None, data, tg, 6, 0.5, 5.0,
+                             tdriver.GibbsConfig(**TRACED))
+    for k in ("t", "T"):
+        np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]))
+    for k in ("a_trace", "b_trace", "a_rhat", "b_rhat", "a_ess", "b_ess",
+              "aave", "bave", "Tave"):
+        assert tuple(tout[k].shape) == np.shape(jout[k]), k
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]),
+                                   rtol=1e-10, err_msg=k)
+    assert tout["a_trace"].shape == (24, 6)
+    # the moves happened: a changes on its cycle only
+    a = tout["a_trace"].numpy()
+    assert not np.array_equal(a[0], a[3]) and np.array_equal(a[1], a[2])
+
+
+@pytest.mark.parametrize("sampler", ["TI", "HSA"])
+def test_traces_change_nothing_else(sampler):
+    """Traces draw nothing: every other output is bitwise the same with
+    and without them; run_gibbs_timed drops them, as JAX's does."""
+    data = tpyp.crp_generate(1, 2, 8, 20, 0.5, 5.0)
+    grid = tag.make_grid(24, 24, g=24, dtype=torch.float64, device="cpu")
+    cfg = tdriver.GibbsConfig(iters=20, bcycle=1, acycle=2, sampler=sampler)
+    outs = [tdriver.run_gibbs(rng.generator(4, "cpu"), data, grid, 4, 0.5,
+                              5.0, dataclasses.replace(
+                                  cfg, collect_traces=traced))
+            for traced in (False, True)]
+    for k, v in outs[0].items():
+        if v is None:
+            assert outs[1][k] is None
+        else:
+            assert torch.equal(v, outs[1][k]), k
+    assert set(outs[1]) - set(outs[0]) == {"a_trace", "b_trace", "a_rhat",
+                                           "b_rhat", "a_ess", "b_ess"}
+    assert torch.equal(outs[1]["a_trace"][-1], outs[1]["a"])
+    timed = tdriver.run_gibbs_timed(
+        rng.generator(4, "cpu"), data, grid, 4, 0.5, 5.0,
+        dataclasses.replace(cfg, collect_traces=True), chunk=4)
+    assert "a_trace" not in timed and timed["iters_done"] == 20
+
+
+def test_collect_traces_diagnostics():
+    """tests/test_resume.py's diagnostic checks, on the port."""
+    data = tpyp.crp_generate(1, 1, 10, 20, 0.5, 5.0)
+    grid = tag.make_grid(24, 21, g=24, dtype=torch.float64, device="cpu")
+    cfg = tdriver.GibbsConfig(iters=60, burnin=10, bcycle=1, acycle=1,
+                              collect_traces=True)
+    out = tdriver.run_gibbs(rng.generator(1, "cpu"), data, grid, 8, 0.5, 5.0,
+                            cfg)
+    assert out["a_trace"].shape == (60, 8) == out["b_trace"].shape
+    assert np.isfinite(float(out["a_rhat"]))
+    assert 0 < float(out["b_ess"]) <= 60 * 8 * 1.5
 
 
 def test_unknown_sampler_raises():

@@ -13,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from libstb_tpu.core import quadrature as jquad
+from libstb_tpu.models import hpyp as jhpyp
 from libstb_tpu.utils import config as jconfig
+from libstb_tpu.utils import metrics as jmetrics
 from libstb_tpu.utils import yaps as jyaps
+from libstb_tpu_torch.core import quadrature as tquad
+from libstb_tpu_torch.models import hpyp as thpyp
 from libstb_tpu_torch.models import pyp as tpyp
 from libstb_tpu_torch.ops import stirling_cuda as sc
 from libstb_tpu_torch.utils import config as tconfig
+from libstb_tpu_torch.utils import metrics as tmetrics
 from libstb_tpu_torch.utils import yaps as tyaps
 
 torch.set_num_threads(1)
@@ -33,6 +39,10 @@ def _modules():
 
 
 def test_every_module_imports_without_jax():
+    assert {"libstb_tpu_torch.parallel.mesh", "libstb_tpu_torch.models.hpyp",
+            "libstb_tpu_torch.core.ngg", "libstb_tpu_torch.core.quadrature",
+            "libstb_tpu_torch.utils.checkpoint",
+            "libstb_tpu_torch.utils.metrics"} <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['libstb_tpu'] = None\n"
@@ -60,6 +70,24 @@ def test_no_jax_or_reference_import(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "libstb_tpu"), (
                 f"{path.name} imports {name}")
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("ngg_torch", ["-N", "6", "-K", "3"]),
+    ("ngg_torch", ["--chains", "16"]),
+    ("precision_torch", ["-N", "40", "-M", "10"])])
+def test_cli_runs_without_jax(cli, argv):
+    """The new CLIs import nothing of JAX, also lazily inside main()."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['libstb_tpu'] = None\n"
+            "sys.path.insert(0, 'cli')\n"
+            f"import {cli}\n"
+            f"{cli}.main({['--device', 'cpu', *argv]!r})\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout
 
 
 def test_cuda_entry_rejects_cpu_tensor():
@@ -111,6 +139,78 @@ def test_check_reference_matches_crp_generate():
         for k in ("T", "a", "b"):
             assert len(r[k]["mean"]) == len(r[k]["se"]) == 1
             assert r[k]["se"][0] > 0
+
+
+def test_hpyp_reference_matches_crp_generate():
+    """tests/data/torch_hpyp_ref.json (tools/torch_hpyp_ref.py): its data
+    equals the port's crp_generate, its grid covers the level-0 bound, and
+    each of the nine moments has its mean and a positive SE."""
+    ref = json.loads((ROOT / "tests" / "data" /
+                      "torch_hpyp_ref.json").read_text())
+    data = tpyp.crp_generate(*ref["data_args"])
+    np.testing.assert_array_equal(data.n, np.asarray(ref["n"]))
+    assert ref["grid_n"] == int(data.n.sum(axis=0).max()) + 2
+    assert ref["chains"] == 256 and ref["config"] == {"iters": 1000,
+                                                      "hyper_cycle": 2}
+    J = data.n.shape[0]
+    sizes = {"T1": J, "T0": 1, "a1": 1, "b1": 1, "a0": 1, "b0": 1}
+    assert set(ref["moments"]) == set(sizes)
+    for k, size in sizes.items():
+        m = ref["moments"][k]
+        assert len(m["mean"]) == len(m["se"]) == size
+        assert min(m["se"]) > 0
+
+
+def test_ngg_reference_matches_the_workload():
+    """tests/data/torch_ngg_ref.json (tools/torch_ngg_ref.py): its
+    workload points are cli/ngg_torch.py's draws, its shapes the stated
+    ones, every bound finite."""
+    sys.path.insert(0, str(ROOT / "cli"))
+    import ngg_torch
+
+    ref = json.loads((ROOT / "tests" / "data" /
+                      "torch_ngg_ref.json").read_text())
+    w = ref["points"]["workload"]
+    N, K = ngg_torch.workload_inputs(len(w["N"]), "cpu")
+    np.testing.assert_array_equal(N.numpy(), w["N"])
+    np.testing.assert_array_equal(K.numpy(), w["K"])
+    assert len(w["N"]) == 256 and len(ref["points"]["cli"]["N"]) == 30
+    S, kap = (np.asarray(ref["table"][k], np.float64) for k in ("S", "kappa"))
+    assert S.shape == kap.shape == (10, 16) and np.isfinite(kap).all()
+    assert np.asarray(ref["ratio_recurrence"]["R"]).shape == (10, 15)
+    assert np.asarray(ref["ratio_quadrature"]["R"]).shape == (10, 199)
+
+
+def test_hpyp_config_copy_equal():
+    def fields(c):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(c)]
+
+    assert fields(thpyp.HPYPConfig) == fields(jhpyp.HPYPConfig)
+    for kw in (dict(iters=30), dict(iters=30, burnin=7), dict(iters=1)):
+        assert (thpyp.HPYPConfig(**kw).resolved_burnin()
+                == jhpyp.HPYPConfig(**kw).resolved_burnin())
+
+
+@pytest.mark.parametrize("levels", [6, 10, 11])
+def test_quadrature_nodes_copy_equal(levels):
+    for x, y in zip(tquad._nodes(levels), jquad._nodes(levels)):
+        assert x.dtype == y.dtype == np.float64
+        np.testing.assert_array_equal(x, y)
+
+
+def test_meter_copy_equal():
+    def fields(c):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(c)]
+
+    assert fields(tmetrics.Meter) == fields(jmetrics.Meter)
+    meters = [mod.Meter("fill", "cells/s") for mod in (tmetrics, jmetrics)]
+    assert meters[0].report() == meters[1].report()
+    for m in meters:
+        assert m.rate == 0.0
+        m.add(1000, 0.5)
+        m.add(1000, 0.5)
+        assert m.rate == 2000 and m.calls == 2
+    assert meters[0].report() == meters[1].report()
 
 
 @pytest.mark.parametrize("cls", ["TableConfig", "SamplerConfig"])
