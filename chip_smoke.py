@@ -7,7 +7,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   1. build the hand-written kernels K1-K3 (csrc/*.cu, all three sharing
-     csrc/row_walk.cuh) with nvcc, one process per source, all at once;
+     csrc/row_walk.cuh) with nvcc, one process per source, all at once,
+     and the native long-double oracle (native/stb_ref.cpp) with g++
+     beside them, before any rank of phase 16 starts;
   2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) and
      at the row walk's tile edges (G = 1 and 64) in f32 and f64, (b) at
      the grid-fill benchmark shape (64 x 16384 x 1024, f32) on 8 of the
@@ -18,7 +20,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      12288) in f32 against the f64 plain fill, and at 8193 columns (a last
      tile of one column);
   3. the main path: make_grid(512, 128, g=64) + run_gibbs with 1024
-     chains x 500 iterations on crp_generate(0, 4, 20, 100) data, with
+     chains x 250 iterations (the Quick-start's 500 cut in half, PERF.md
+     section 4) on crp_generate(0, 4, 20, 100) data, with
      the kernel's launch count over that run;
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
@@ -103,19 +106,45 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      cli/ngg_torch.py's table mode, then its --chains 100000 workload
      (the saddle representations agree within 0.05; saddle-evals/s, one
      profiled pass); (c) cli/precision_torch.py at N = 10000, M = 4000:
-     ratio/f32's error below log/f32's.
+     ratio/f32's error below log/f32's;
+ 16. the multi-device layer on the one card, each rank a process of this
+     script on cuda:0 (gloo between ranks that share it; any failing rank
+     fails the phase; c, d and a run at once): (b) make_grid(mesh=...) of phase 2b's 8 discounts
+     at 16384 x 1024 f32 over 2 ranks, the gathered tables bitwise equal
+     to a one-process K1 fill, the fill and the all-gather timed apart;
+     (c) entry.dryrun_multichip over 4 ranks on a 2 x 2 chains x data
+     mesh at the JAX package's shapes (1024 chains, a 512 x 128 x 32
+     grid): data-group peers bitwise equal, t, T, b of each chain shard
+     equal to the one-process step on its chains under the same shard
+     generators, a within 1e-5 relative in all but 1% of them, the
+     invariants exact, the means finite; (d) the gate's configuration over
+     2 ranks through .p0 / .p1 checkpoints, the resumed run bitwise equal
+     to the straight one; (a) NCCL at world size 1: an
+     all-reduce, an all-gather and make_grid(mesh=...) bitwise equal to
+     the unsharded fill; (e) torchrun --nproc_per_node 2
+     cli/ngg_torch.py --chains 100000: worst equal to 15b's, mean within
+     rtol 1e-12;
+ 17. the long-double oracle: native.fill_ref(0.5, 8192, 1024) against K1
+     (G = 1), K2, K3 and the plain fill in f32 and f64 (max |d log S|,
+     |dSrel|, V relative error; each kernel within 1.5 x its plain
+     version's error + 1e-7 and the bench bounds 5e-2 / 1e-4), and the
+     native crp_generate against the Python one at check.c's MAXDATA.
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
-over the paths of phases 3, 7, 9, 10, 11, 12, 13 and 14, each driven with
-the counts set to 0 just before it; "launches_by_path" splits them), error
-and times; the last line is {"ok": true, "device": {...}}.
+over the paths of phases 3, 7, 9, 10, 11, 12, 13, 14, 16a-d (over each
+path's ranks, which report theirs in a RANK json line) and 17, each driven
+with the counts set to 0 just before it; "launches_by_path" splits them),
+error and times; the last line is {"ok": true, "device": {...}}.
+
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,6 +165,7 @@ ARS_SEED, ARS_ITERS = "7", 1000
 CONFIG_SHAPE = (64, 512, 2000, 41)
 SPECIAL_POINTS = 10 ** 6
 BENCH_SHAPE = (64, 1 << 14, 1024)      # bench.py:77, the headline grid fill
+MAIN_ITERS = 250               # phase 3: the Quick-start's 500, cut in half
 # The least time for a fill: its tables written once (2 cells' bytes a
 # cell) at the H100 SXM's 3.35 TB/s, or its f64 work at 34 TFLOP/s (f64
 # outside the tensor cores; NVIDIA's data sheet), whichever is larger.  A
@@ -1599,6 +1629,7 @@ def phase15_ngg(dev, card, ref):
             if len(ln.split()) == 9 and ln.split()[0].isdigit()]
     check(len(rows) == 30, f"ngg_torch table mode printed {len(rows)} rows")
     res = ngg_torch.main(["--device", "cuda", "--chains", str(NGG_CHAINS)])
+    workload = res
     check(res["worst"] < ngg_torch.AGREE, "NGG workload disagrees")
     N, K = ngg_torch.workload_inputs(NGG_CHAINS, dev)
     ev_ms = 1e3 * metrics.device_timer(ngg_torch.evaluate, a, M, N, K)
@@ -1626,6 +1657,496 @@ def phase15_ngg(dev, card, ref):
         print(f"   {name:10s}: max|err| {errs[name]:.4g}, fill "
               f"{ms[name]:.1f} ms (host clock, synchronized) [{card}]")
     done(t0)
+    return workload
+
+
+# -- phases 16-17: the multi-device layer and the long-double oracle ---------
+#
+# Phase 16 runs the port's multi-device path on the one card: each phase
+# starts its ranks as processes of this script (``--rank PHASE RANK WORLD
+# RDZV OUT``), all on cuda:0, joined through a file rendezvous; NCCL at
+# world size 1, gloo between ranks that share the card (NCCL refuses two
+# ranks on one device).  Each rank prints one ``RANK {json}`` line with its
+# K1 launches on the path and its measurements; a failing rank fails the
+# phase.  16e runs cli/ngg_torch.py under torchrun.
+
+DRY_SHAPE = dict(chains=1024, n_max=512, m_max=128, g=32, dim=16,
+                 n_per_group=200)       # __graft_entry__.dryrun_multichip's
+SHARD_FILL = (8, 1 << 14, 1024)         # phase 2b's 8 discounts, f32
+SHARD_A = (0.01, 0.9)                   # ... of linspace(0.01, 0.9, 64)
+CKPT_K = 20                             # 16d: 20 + 20 iterations, lcm 10
+ORACLE = (0.5, 8192, 1024)              # phase 17: fill_ref's shape
+TPU_K2_DSREL = 2.4e-3                   # stirling_pallas.py:327, the TPU's
+
+
+def _rank_env():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["OMP_NUM_THREADS"] = "2"
+    return env
+
+
+def _wait(procs, timeout, what):
+    """Outputs of ``procs``; kills them all and fails if one fails or
+    they outlive ``timeout``."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{what}: ranks did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(text[-4000:], flush=True)
+            raise AssertionError(f"{what}: rank {r} exited {p.returncode}")
+    return outs
+
+
+_STARTED = []                  # every process phase 16 started
+
+
+def _start(argv):
+    proc = subprocess.Popen(argv, cwd=ROOT, env=_rank_env(),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    _STARTED.append(proc)
+    return proc
+
+
+def _stop_all():
+    for p in _STARTED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_ranks(name, world, out):
+    """Start phase ``name`` in ``world`` processes of this script on
+    cuda:0; finish_ranks collects them."""
+    rdzv = os.path.join(out, f"rdzv_{name}")
+    return name, [_start([sys.executable, os.path.abspath(__file__),
+                          "--rank", name, str(r), str(world), rdzv, out])
+                  for r in range(world)]
+
+
+def run_ranks(name, world, out, timeout=240):
+    """Phase ``name`` in ``world`` processes of this script on cuda:0;
+    returns each rank's RANK json."""
+    return finish_ranks(start_ranks(name, world, out), timeout)
+
+
+def finish_ranks(started, timeout=240):
+    """Each rank's RANK json of ``started`` (from start_ranks)."""
+    name, procs = started
+    outs = _wait(procs, timeout, f"phase {name}")
+    res = []
+    for text in outs:
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        check(len(lines) == 1, f"phase {name}: a rank printed no result")
+        res.append(json.loads(lines[0][5:]))
+    return res
+
+
+def _k1_path(results):
+    """K1 launches of a phase-16 path, summed over its ranks; every rank
+    must have launched K1."""
+    check(all(r["launches"]["fill_grid"] >= 1 for r in results),
+          "a rank of the path did not launch K1")
+    return {name: sum(r["launches"][name] for r in results)
+            for name in results[0]["launches"]}
+
+
+def rank16a_nccl(dev, rank, world, out):
+    """NCCL at world size 1: an all-reduce and an all-gather on the card;
+    the mesh fill bitwise equal to the unsharded fill."""
+    import torch.distributed as dist
+    from libstb_tpu_torch.core import agrid
+    from libstb_tpu_torch.ops import stirling_cuda as sc
+    from libstb_tpu_torch.parallel import mesh as pmesh
+
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    x = torch.arange(1024.0, device=dev)
+    y = x.clone()
+    dist.all_reduce(y)
+    g = pmesh._all_gather(x, dist.group.WORLD)
+    torch.cuda.synchronize()
+    check(torch.equal(y, x) and torch.equal(g, x),
+          "NCCL all-reduce / all-gather at world 1 changed the tensor")
+    cm = pmesh.chain_mesh(device=dev)
+    reset_launches(sc)
+    grid = agrid.make_grid(512, 128, g=64, mesh=cm)
+    launches = dict(sc.LAUNCHES)
+    one = agrid.make_grid(512, 128, g=64, device=dev)
+    for k in ("avec", "s1_hi", "s1_lo", "vtab", "srel"):
+        check(torch.equal(getattr(grid, k), getattr(one, k)),
+              f"16a: the mesh fill's {k} differs from the unsharded fill")
+    return dict(launches=launches, backend=dist.get_backend())
+
+
+def rank16b_fill(dev, rank, world, out):
+    """Phase 2b's 8 discounts through make_grid(mesh=...): each rank fills
+    G / P of them through K1 and the shares are all-gathered (staged
+    through host memory on gloo); the fill and the gather timed apart,
+    the gathered tables bitwise equal to a one-process K1 fill."""
+    import torch.distributed as dist
+    from libstb_tpu_torch.core import agrid
+    from libstb_tpu_torch.ops import stirling_cuda as sc
+    from libstb_tpu_torch.parallel import mesh as pmesh
+
+    G, N, M = SHARD_FILL
+    avec = np.linspace(*SHARD_A, G)
+    cm = pmesh.chain_mesh(device=dev)
+    reset_launches(sc)
+    grid = agrid.make_grid(N, M, g=G, a_lo=SHARD_A[0], a_hi=SHARD_A[1],
+                           mesh=cm)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    nbytes = sum(x.numel() * x.element_size() for x in (grid.vtab, grid.srel))
+    check(torch.equal(grid.avec, torch.as_tensor(avec, dtype=torch.float32,
+                                                 device=dev)), "16b: avec")
+    v, s = sc.fill_grid_cuda(grid.avec, N, M)
+    check(torch.equal(v, grid.vtab) and torch.equal(s, grid.srel),
+          "16b: the gathered grid differs from a one-process K1 fill")
+    del v, s, grid
+    # the fill and the gather apart, warm: make_grid(mesh=...)'s two halves
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    shard = agrid._fill_shard(avec, N, M, True, True, torch.float32, cm)
+    ev[1].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    agrid._gather_shard(shard, cm)
+    ev[2].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(launches=launches, bytes=nbytes,
+                fill_ms=ev[0].elapsed_time(ev[1]),
+                gather_ms=ev[1].elapsed_time(ev[2]),
+                fill_host_ms=1e3 * (t1 - t0), gather_host_ms=1e3 * (t2 - t1))
+
+
+def rank16c_dryrun(dev, rank, world, out):
+    """dryrun_multichip on the 2 x 2 chains x data mesh, then the
+    one-process step on this rank's chains with the same shard
+    generators: t, T, b exactly equal, a within 1e-5 relative in all but
+    1% of the chains; the state's invariants exact."""
+    from libstb_tpu_torch import entry
+    from libstb_tpu_torch.models import pyp
+    from libstb_tpu_torch.ops import stirling_cuda as sc
+
+    reset_launches(sc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = entry.dryrun_multichip(world, **DRY_SHAPE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    cm = res["mesh"]
+    data = pyp.crp_generate(0, 2, DRY_SHAPE["dim"],
+                            DRY_SHAPE["n_per_group"], 0.5, 2.0)
+    check_state(res["t"], res["T"], data.n, "16c")
+    kw = {k: DRY_SHAPE[k] for k in ("n_max", "m_max", "g", "dim",
+                                    "n_per_group")}
+    step, args = entry._build(res["local"], dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = step(entry.step_generators(0, dev, cm.coord("chains")), *args[1:])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    for k, x in zip("tTb", (ref[0], ref[1], ref[3])):
+        check(torch.equal(res[k], x),
+              f"16c: {k} differs from the one-process step on the chains")
+    rel = ((res["a"].double() - ref[2].double()).abs()
+           / ref[2].double().abs())
+    off = float((rel > 1e-5).double().mean())
+    check(off <= 0.01, f"16c: a off by > 1e-5 in {100 * off:.2f}% of chains")
+    np.savez(os.path.join(out, f"dry{rank}.npz"),
+             **{k: res[k].cpu().numpy() for k in "tTab"})
+    return dict(launches=launches, mesh=cm.shape, coords=list(cm.coords),
+                chains=res["chains"], a_mean=res["a_mean"],
+                b_mean=res["b_mean"], a_max_rel=float(rel.max()),
+                a_off=off, run_s=run_s, step_s=step_s)
+
+
+def rank16d_checkpoint(dev, rank, world, out):
+    """The gate's configuration (seed 7, its 64 chains split over the
+    ranks) through the driver: CKPT_K iterations, checkpoint.save of the
+    rank's chains and CUDA generator to .p<rank>, load, re-shard with
+    shard_chain_tree_global, CKPT_K more; equal to the straight 2 CKPT_K
+    bitwise.
+    The cross-chain mean of a, reduced over the ranks, is printed."""
+    from libstb_tpu_torch.core import agrid
+    from libstb_tpu_torch.models import driver, pyp
+    from libstb_tpu_torch.ops import stirling_cuda as sc
+    from libstb_tpu_torch.parallel import distributed
+    from libstb_tpu_torch.parallel import mesh as pmesh
+    from libstb_tpu_torch.utils import checkpoint
+
+    with open(GATE_REF) as f:
+        ref = json.load(f)
+    data = pyp.crp_generate(int(TRACE_SEED), *ref["data_args"])
+    cm = pmesh.chain_mesh(device=dev)
+    C = ref["chains"]
+    local = distributed.host_local_chains(C)
+    reset_launches(sc)
+    n_max = max(int(data.N.max()) + 2, 16)
+    grid = agrid.make_grid(n_max, n_max, g=ref["grid_g"], mesh=cm)
+    cfg = driver.GibbsConfig(**dict(ref["config"], iters=2 * CKPT_K))
+    half = dataclasses.replace(cfg, iters=CKPT_K)
+    grid, plan = driver._prepare(data, grid, cfg)
+    init = driver._init(data, grid, C, ref["a0"], ref["b0"], plan)
+    sl = pmesh.chain_slice(cm, C)
+    st = pmesh.shard_chain_tree_global(
+        {k: None if v is None else v[sl] for k, v in init.items()}, cm, C)
+    seed = 1000 * (rank + 1) + int(TRACE_SEED)
+    straight = driver._run_chunk(torch.Generator(device=dev).manual_seed(
+        seed), data, grid, st, cfg, plan, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    first = driver._run_chunk(gen, data, grid, st, half, plan, 0)
+    keys = ("t", "T", "hist", "a", "b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save(os.path.join(out, "ckpt"),
+                           {"state": {k: first[k] for k in keys},
+                            "gen": gen}, meta={"iters_done": CKPT_K},
+                           chains=local)
+    ck, meta = checkpoint.load(os.path.join(out, "ckpt"), device=dev)
+    ck_ms = 1e3 * (time.perf_counter() - t0)
+    check(path.endswith(f"ckpt.p{rank}.npz"), f"16d: saved to {path}")
+    with open(path + ".json") as f:
+        side = json.load(f)
+    check(side["world_size"] == world and side["rank"] == rank
+          and len(side["chain_sharded"]) == 4, f"16d: sidecar {side}")
+    state = pmesh.shard_chain_tree_global(ck["state"], cm, C)
+    resumed = driver._run_chunk(ck["gen"], data, grid, state, half, plan, 0)
+    for k in ("t", "T", "a", "b"):
+        check(torch.equal(resumed[k], straight[k]),
+              f"16d: resumed {k} differs from the straight run")
+    launches = dict(sc.LAUNCHES)
+    a_mean = pmesh.cross_chain_moments(resumed["a"].double(), mesh=cm)[0]
+    return dict(launches=launches, bytes=os.path.getsize(path),
+                ckpt_ms=ck_ms, a_mean=repr(float(a_mean)),
+                local=local)
+
+
+RANK_PHASES = {"16a": rank16a_nccl, "16b": rank16b_fill,
+               "16c": rank16c_dryrun, "16d": rank16d_checkpoint}
+
+
+def rank_main(argv):
+    """One rank of a phase-16 path (see run_ranks)."""
+    name, rank, world, rdzv, out = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from libstb_tpu_torch.parallel import distributed
+
+    distributed.init(f"file://{rdzv}", world, rank)
+    dev = distributed.local_device()
+    res = RANK_PHASES[name](dev, rank, world, out)
+    print("RANK " + json.dumps(res), flush=True)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def phase16_multidevice(dev, card, ngg_one):
+    """Phases 16a-e; returns {path: K1 launches summed over its ranks}."""
+    paths = {}
+    out = tempfile.mkdtemp(prefix="chip_smoke16_")
+    try:
+        G, N, M = SHARD_FILL
+        t0 = phase(f"16b sharded K1 fill, 2 gloo ranks on cuda:0: {G} "
+                   f"discounts at ({N}, {M}) f32, gathered on every rank")
+        res = run_ranks("16b", 2, out)
+        paths["16b"] = _k1_path(res)
+        for r, x in enumerate(res):
+            print(f"   rank {r}: fill {x['fill_ms']:.3f} ms (CUDA events), "
+                  f"{x['fill_host_ms']:.3f} ms (host); all-gather "
+                  f"{x['gather_ms']:.3f} ms (CUDA events), "
+                  f"{x['gather_host_ms']:.3f} ms (host); {x['bytes'] / 1e9:.3f}"
+                  f" GB of V + Srel a rank [{card}]")
+        done(t0, f"bitwise equal to a one-process K1 fill; launches "
+                 f"{paths['16b']}")
+
+        t0 = phase(f"16c dryrun_multichip, 4 gloo ranks on cuda:0 (2 x 2 "
+                   f"chains x data), {DRY_SHAPE}; 16d and 16a beside it")
+        dry = start_ranks("16c", 4, out)
+        nccl = start_ranks("16a", 1, out)
+        ckpt = start_ranks("16d", 2, out)
+        res = finish_ranks(dry)
+        paths["16c"] = _k1_path(res)
+        states = [dict(np.load(os.path.join(out, f"dry{r}.npz")))
+                  for r in range(4)]
+        by_shard = {}
+        for r, x in enumerate(res):
+            check(x["mesh"] == {"chains": 2, "data": 2}, f"16c: {x['mesh']}")
+            by_shard.setdefault(x["coords"][0], []).append(r)
+        for peers in by_shard.values():
+            for r in peers[1:]:
+                for k in "tTab":
+                    check(np.array_equal(states[r][k], states[peers[0]][k]),
+                          f"16c: data-group peers differ in {k}")
+        a_mean, b_mean = res[0]["a_mean"], res[0]["b_mean"]
+        check(np.isfinite(a_mean) and np.isfinite(b_mean)
+              and 0.01 <= a_mean <= 0.98, f"16c: means {a_mean}, {b_mean}")
+        print(f"   chains={res[0]['chains']}, a_mean={a_mean:.6f}, "
+              f"b_mean={b_mean:.6f}; a vs the one-process step: max rel "
+              f"{max(x['a_max_rel'] for x in res):.3g}, chains off > 1e-5: "
+              f"{max(x['a_off'] for x in res):.4f}; dry run "
+              f"{max(x['run_s'] for x in res):.3f} s (host, slowest rank; "
+              f"cold: the group, the grid, first calls); the one-process "
+              f"step on a rank's {res[0]['chains'] // 2} chains after it "
+              f"{max(x['step_s'] for x in res):.3f} s (host, slowest of "
+              f"4; 16d's 2 ranks and 16a share the card) [{card}]")
+        done(t0, f"peers bitwise equal; t, T, b equal the one-process "
+                 f"step; launches {paths['16c']}")
+
+        t0 = phase(f"16d (run beside 16c) checkpoint .p0 / .p1: 2 ranks, the "
+                   f"gate's 64 chains split, {CKPT_K} + {CKPT_K} iterations "
+                   f"vs {2 * CKPT_K} straight")
+        res = finish_ranks(ckpt)
+        paths["16d"] = _k1_path(res)
+        check(res[0]["a_mean"] == res[1]["a_mean"],
+              "16d: the cross-chain mean differs between the ranks")
+        print(f"   resumed == straight bitwise on both ranks; checkpoint "
+              f"{res[0]['bytes']} bytes a rank, save + load "
+              f"{max(x['ckpt_ms'] for x in res):.1f} ms; mean a over all "
+              f"chains {res[0]['a_mean']} on both ranks [{card}]")
+        done(t0, f"launches {paths['16d']}")
+
+        t0 = phase("16a NCCL at world size 1 (run beside 16c): all-reduce, "
+                   "all-gather, make_grid(512, 128, g=64, mesh=...) vs the "
+                   "unsharded fill")
+        res = finish_ranks(nccl)
+        paths["16a"] = _k1_path(res)
+        done(t0, f"backend {res[0]['backend']}; launches {paths['16a']}")
+
+        t0 = phase(f"16e torchrun --nproc_per_node 2 cli/ngg_torch.py "
+                   f"--chains {NGG_CHAINS} on cuda:0")
+        js = os.path.join(out, "ngg.json")
+        proc = _start(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", os.path.join(ROOT, "cli",
+                                                   "ngg_torch.py"),
+             "--chains", str(NGG_CHAINS), "--json", js])
+        text = _wait([proc], 240, "16e")[0]
+        with open(js) as f:
+            res = json.load(f)
+        check(res["chains"] == NGG_CHAINS and res["worst"] < 0.05,
+              f"16e: {res}")
+        check(res["worst"] == ngg_one["worst"],
+              f"16e: worst {res['worst']!r} != one process's "
+              f"{ngg_one['worst']!r}")
+        check(abs(res["mean"] - ngg_one["mean"])
+              <= 1e-12 * abs(ngg_one["mean"]),
+              f"16e: mean {res['mean']!r} vs {ngg_one['mean']!r}")
+        line = [ln for ln in text.splitlines() if "NGG workload" in ln]
+        print(f"   {line[0] if line else text[-500:]}")
+        print(f"   {res['evals_per_s']:.4g} saddle-evals/s over 2 ranks "
+              f"(one process, 15b: {ngg_one['evals_per_s']:.4g}); worst "
+              f"{res['worst']!r} == 15b's, mean {res['mean']!r} vs "
+              f"{ngg_one['mean']!r} [{card}]")
+        done(t0)
+    finally:
+        _stop_all()
+        shutil.rmtree(out, ignore_errors=True)
+    return paths
+
+
+def oracle_errors(v, s, logS, V, S1):
+    """(max |d log S|, max |dSrel|, max V rel) of natural-layout (n, m)
+    tables against the long-double oracle (f64 tensors on the card)."""
+    s1 = S1[:, None]
+    fin = torch.isfinite(logS)
+    live = torch.isfinite(V) & (V > 0)
+    live[:, 0] = False
+    ss = s.double()
+    d_log = ((ss + s1) - logS).abs()[fin].max().item()
+    d_srel = (ss - (logS - s1)).abs()[fin].max().item()
+    vv = v.double()
+    v_rel = ((vv - V).abs()[live] / V[live]).max().item()
+    check(bool((torch.isneginf(ss) == ~fin).all()),
+          "-inf pattern differs from the oracle's")
+    return d_log, d_srel, v_rel
+
+
+def phase17_oracle(dev, sc, stirling, pyp, card):
+    """K1 (G = 1), K2, K3 and the plain fill, each in f32 and f64, against
+    the long-double fill_ref at (0.5, 8192, 1024); the native CRP
+    generator against the Python one at check.c's MAXDATA.  Returns the
+    kernels' launches in the phase."""
+    from libstb_tpu_torch import native
+
+    a, N, M = ORACLE
+    t0 = phase(f"17 the long-double oracle: fill_ref{ORACLE} vs K1, K2, K3 "
+               "and the plain fill, f32 and f64")
+    t_run = time.perf_counter()
+    logS, V, S1 = native.fill_ref(a, N, M)
+    ref_s = time.perf_counter() - t_run
+    logS, V = (torch.as_tensor(x, device=dev) for x in (logS, V))
+    s1 = torch.as_tensor(stirling.s1_host(a, N), device=dev)
+    S1 = torch.as_tensor(S1, device=dev)
+    check(bool(((s1 - S1).abs() <= 1e-13 * S1.abs()).all()),
+          "host S1 differs from the oracle's (rtol 1e-13)")
+    reset_launches(sc)
+    rows = {}
+    for dt in (torch.float32, torch.float64):
+        at = torch.tensor(a, dtype=dt, device=dev)
+        fills = {
+            "plain": lambda: sc.fill_table_ref(at, N, M),
+            "K1": lambda: tuple(x[0] for x in sc.fill_grid_cuda(
+                at.reshape(1), N, M)),
+            "K2": lambda: sc.fill_table_cuda(at, N, M),
+            "K3": lambda: tuple(x.T for x in sc.fill_table_cols_cuda(
+                at, N, M)),
+        }
+        for name, fill in fills.items():
+            v, s = fill()
+            torch.cuda.synchronize()
+            rows[(name, dt)] = oracle_errors(v, s, logS, V, s1)
+            del v, s
+    launches = dict(sc.LAUNCHES)
+    for dt in (torch.float32, torch.float64):
+        plain = rows[("plain", dt)]
+        for name in ("plain", "K1", "K2", "K3"):
+            e = rows[(name, dt)]
+            print(f"   {name:5s} {str(dt)[6:]}: max |d log S| {e[0]:.4g}, "
+                  f"max |dSrel| {e[1]:.4g}, V max rel {e[2]:.4g}"
+                  + (f" (the TPU kernel's |dSrel| at n = 8192: "
+                     f"{TPU_K2_DSREL:g})" if name == "K2"
+                     and dt == torch.float32 else ""))
+            if name == "plain":
+                continue
+            for i, what in enumerate(("d log S", "dSrel", "V rel")):
+                check(e[i] <= 1.5 * plain[i] + 1e-7,
+                      f"17: {name} {dt} {what} {e[i]:.4g} > 1.5 x plain "
+                      f"{plain[i]:.4g} + 1e-7")
+            check(e[1] <= 5e-2 and e[2] < 1e-4,
+                  f"17: {name} {dt}: |dSrel| {e[1]:.4g} (<= 5e-2), V rel "
+                  f"{e[2]:.4g} (< 1e-4)")
+    t_run = time.perf_counter()
+    nat = native.crp_generate(*CHECKC_DATA)
+    nat_s = time.perf_counter() - t_run
+    t_run = time.perf_counter()
+    py = pyp.crp_generate(*CHECKC_DATA)
+    py_s = time.perf_counter() - t_run
+    check(int(nat.N.sum()) == int(py.N.sum()) == 100 * 1000,
+          "17: crp_generate item counts")
+    print(f"   fill_ref {ref_s:.3f} s (host, long double); crp_generate"
+          f"{CHECKC_DATA}: native {1e3 * nat_s:.2f} ms, Python "
+          f"{1e3 * py_s:.1f} ms (host) [{card}]")
+    print(f"   launches: {launches}")
+    done(t0)
+    return launches
 
 
 def main():
@@ -1649,11 +2170,17 @@ def main():
     done(t0)
     paths = {}                 # launches of each main path, by phase
 
-    t0 = phase("1 build K1, K2, K3")
-    sc.build_all()
-    for name in sc.KERNELS:
-        sc.load(name)
-    done(t0, f"({', '.join(p.name for p in sc.SOURCES.values())} -> sm_90a)")
+    t0 = phase("1 build K1, K2, K3 and the native oracle")
+    from libstb_tpu_torch import native
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(native.build)      # g++ beside the nvcc processes
+        sc.build_all()
+        for name in sc.KERNELS:
+            sc.load(name)
+        so = gxx.result()
+    check(native.available(), "the native oracle did not load")
+    done(t0, f"({', '.join(p.name for p in sc.SOURCES.values())} -> sm_90a; "
+             f"{so.name} by g++)")
 
     t0 = phase("2a K1 vs plain at (8, 160, 48) and tile edges")
     avec = torch.linspace(0.0, 0.9, 8, dtype=torch.float64, device=dev)
@@ -1727,11 +2254,12 @@ def main():
 
     phase2d_wide(dev, sc, agrid, card)
 
-    t0 = phase("3 main path: make_grid + run_gibbs (1024 chains x 500)")
+    t0 = phase(f"3 main path: make_grid + run_gibbs (1024 chains x "
+               f"{MAIN_ITERS})")
     reset_launches(sc)
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
-    cfg = driver.GibbsConfig(iters=500, bcycle=2, acycle=5)
+    cfg = driver.GibbsConfig(iters=MAIN_ITERS, bcycle=2, acycle=5)
     t_run = time.perf_counter()
     out = driver.run_gibbs(torch.Generator(device=dev).manual_seed(1), data,
                            grid, 1024, 0.5, 10.0, cfg)
@@ -1787,7 +2315,9 @@ def main():
     with open(HPYP_REF) as f:
         paths["14"] = phase14_hpyp(dev, sc, agrid, pyp, card, json.load(f))
     with open(NGG_REF) as f:
-        phase15_ngg(dev, card, json.load(f))
+        ngg_one = phase15_ngg(dev, card, json.load(f))
+    paths.update(phase16_multidevice(dev, card, ngg_one))
+    paths["17"] = phase17_oracle(dev, sc, stirling, pyp, card)
     # every kernel of a path was launched in that path's own run
     for path, names in (("3", ["fill_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
@@ -1796,7 +2326,13 @@ def main():
                         ("11", ["fill_grid"]),
                         ("12", ["fill_table"]),
                         ("13", ["fill_grid"]),
-                        ("14", ["fill_grid"])):
+                        ("14", ["fill_grid"]),
+                        ("16a", ["fill_grid"]),
+                        ("16b", ["fill_grid"]),
+                        ("16c", ["fill_grid"]),
+                        ("16d", ["fill_grid"]),
+                        ("17", ["fill_grid", "fill_table",
+                                "fill_table_cols"])):
         for name in names:
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")
@@ -1839,4 +2375,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -8,16 +8,22 @@ values, the saddle-point approximations and tanh-sinh quadrature
 (ngg_test.c:502-533's main output, with the quadrature column that
 ngg_integral.cpp provides).  Everything runs in f64 on --device.
 
---chains C: the posterior workload of BASELINE config 5 on one device --
-C (n, k) chains evaluate the u- and x-representation saddle points at
-once, whose agreement must stay below 5% (the same check as cli/ngg.py);
-prints saddle-evals/s.  Sharding the chains over several devices is not
-ported yet.
+--chains C: the posterior workload of BASELINE config 5 -- C (n, k)
+chains evaluate the u- and x-representation saddle points at once, whose
+agreement must stay below 5% (the same check as cli/ngg.py); prints
+saddle-evals/s.  Under torchrun the chains are sharded over the
+processes (C rounded down to a multiple of them, as cli/ngg.py rounds to
+the mesh): each rank evaluates its slice of the same seed-0 draws, the
+worst disagreement is reduced as a maximum and the mean as a
+chain-weighted sum, and rank 0 prints the line.  --device cuda (the
+default) is each process's own card, cuda:LOCAL_RANK.
 
   python cli/ngg_torch.py
   python cli/ngg_torch.py --chains 100000
+  torchrun --nproc_per_node 2 cli/ngg_torch.py --chains 100000
 """
 import argparse
+import json
 import os
 import sys
 import time
@@ -41,15 +47,21 @@ def main(argv=None):
                         "family over this many (n, k) chains on the device "
                         "(BASELINE config 5)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="with --chains: rank 0 also writes the result "
+                        "(chains, seconds, evals_per_s, worst, mean) here")
     args = p.parse_args(argv)
 
     import torch
 
     from libstb_tpu_torch.core import ngg
+    from libstb_tpu_torch.parallel import distributed
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
         raise SystemExit("ngg_torch: --device cuda but no CUDA device")
+    device = distributed.local_device(
+        None if args.device == "cuda" else args.device)
     if args.chains:
         return ngg_workload(args, device)
     a, M, N, K = args.a, args.M, args.N, args.K
@@ -113,26 +125,49 @@ def _sync(device):
 
 
 def ngg_workload(args, device):
-    """The NGG posterior workload (BASELINE config 5) on one device; raises
+    """The NGG posterior workload (BASELINE config 5) on this process's
+    share of the chains (all of them in a single process); raises
     SystemExit if the two saddle representations disagree by AGREE or
-    more.  Returns dict(chains, seconds, evals_per_s, worst, mean)."""
-    C = args.chains
-    N, K = workload_inputs(C, device)
+    more.  Returns dict(chains, seconds, evals_per_s, worst, mean), the
+    statistics over all chains, the time that of the slowest process."""
+    import torch
+
+    from libstb_tpu_torch.parallel import distributed
+    from libstb_tpu_torch.parallel import mesh as pmesh
+
+    distributed.init()
+    P = distributed.world_size()
+    C = (args.chains // P) * P or P
+    cm = pmesh.chain_mesh(device=device)
+    st = pmesh.shard_chain_tree(dict(zip("NK", workload_inputs(C, "cpu"))),
+                                cm, C)
+    N, K = st["N"], st["K"]
     evaluate(args.a, args.M, N, K)             # warm: allocator, lazy init
     _sync(device)
     t0 = time.perf_counter()
     _, _, worst, mean = evaluate(args.a, args.M, N, K)
     _sync(device)
     dt = time.perf_counter() - t0
+    if P > 1:
+        worst = pmesh.max_over(worst, cm, pmesh.CHAIN_AXIS)
+        mean = pmesh.sum_over(mean * (C // P), cm, pmesh.CHAIN_AXIS) / C
+        dt = float(pmesh.max_over(
+            torch.tensor(dt, dtype=torch.float64, device=device), cm,
+            pmesh.CHAIN_AXIS))
     worst, mean = float(worst), float(mean)
-    print(f"NGG workload: {C} chains on 1 device ({device}): "
-          f"{2 * C / dt:.3g} saddle-evals/s; u-vs-g agreement "
-          f"max {worst:.2e} mean {mean:.2e}")
+    res = dict(chains=C, seconds=dt, evals_per_s=2 * C / dt, worst=worst,
+               mean=mean)
+    if distributed.rank() == 0:
+        print(f"NGG workload: {C} chains on {P} device(s) ({device}): "
+              f"{2 * C / dt:.3g} saddle-evals/s; u-vs-g agreement "
+              f"max {worst:.2e} mean {mean:.2e}", flush=True)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(res, f)
     if not worst < AGREE:
         raise SystemExit(f"ngg_torch: saddle representations disagree: "
                          f"max {worst:.3g} >= {AGREE}")
-    return dict(chains=C, seconds=dt, evals_per_s=2 * C / dt, worst=worst,
-                mean=mean)
+    return res
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Runs the discount-grid Gibbs main path (the demo.c workload), the
 single-table path, the check.c samplers, the HPYP model and the NGG
-subsystem on an NVIDIA GPU; the JAX package ``libstb_tpu`` stays beside it
+subsystem on an NVIDIA GPU, in one process or sharded over the processes
+of a torch.distributed world; the JAX package ``libstb_tpu`` stays beside it
 as the reference that tests/test_torch_*.py hold every ported function to.  This package imports
 ``torch`` and never ``jax`` or ``libstb_tpu``.
 
@@ -20,9 +21,14 @@ as the reference that tests/test_torch_*.py hold every ported function to.  This
   models.sa         the explicit-seating host oracle
   models.driver     run_gibbs (traces, R-hat, ESS), run_gibbs_timed
   models.hpyp       the two-level hierarchical PYP (run_hpyp)
-  parallel.mesh     rhat / ess / cross_chain_moments
+  parallel.distributed   torch.distributed init, backend and device choice
+  parallel.mesh     chain meshes over processes, chain sharding, the
+                    collectives; rhat / ess / cross_chain_moments
+  native            the long-double reference fill and the native CRP
+                    generator (g++, ctypes)
   convert           carry JAX tables, data and chain state across
-  entry             one composite Gibbs step + example arguments
+  entry             one composite Gibbs step + example arguments; the
+                    multi-process dry run (dryrun_multichip)
   utils             config, yaps logging (jax-free copies), checkpoint,
                     metrics
 """

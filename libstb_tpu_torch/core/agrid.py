@@ -10,8 +10,10 @@ kernel on a GPU, the plain fill on the CPU (ops/stirling_cuda.fill_grid).
 matmul route (``_data_curve_mm``) exists for the TPU's matrix unit and
 tests/test_torch_agrid.py holds the gather route equal to both JAX
 routes; ``data_curve_sparse`` streams the same reduction over the pairs in
-chunks.  The sharded fill (``mesh``) is not ported yet (ROADMAP Queue 1,
-item 11).
+chunks.  ``make_grid(mesh=...)`` is the sharded fill: each process fills
+its share of the discounts and the shares are all-gathered, so every rank
+holds the whole grid (a query at any chain's ``a`` reads every discount,
+and a torch tensor has no global form to shard it by).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from ..ops import stirling_cuda
+from ..parallel import distributed
+from ..parallel import mesh as pmesh
 from ..utils import yaps
 from . import stirling
 
@@ -284,29 +288,39 @@ class AGridTable:
 def make_grid(n_max: int, m_max: int, g: int = 100,
               a_lo: float = 0.0, a_hi: float = 0.99,
               build_s: bool = True, build_v: bool = True,
-              dtype=torch.float32, *, device, mesh=None,
+              dtype=torch.float32, *, device=None, mesh=None,
               max_n: int = 0, max_m: int = 0,
               use_asympt: bool = True, tag: str = "") -> AGridTable:
-    """Fill tables for a uniform discount grid on ``device``.
+    """Fill tables for a uniform discount grid on ``device`` (default: the
+    mesh's device, else the card).
 
     The default [0, 0.99] covers the sampler bounds A_MIN=0.01..A_MAX=0.98
     (psample.h:89-90) with a full 4-point stencil inside.  On a CUDA
     device the fill is the hand-written kernel K1 (f32 or f64); on the CPU
     the plain fill.  ``max_n``/``max_m``: hard bounds (0 = no growth
     headroom); ``use_asympt``: asymptote policy for out-of-grid queries.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_grid(mesh=...): the sharded grid fill is not ported yet "
-            "(ROADMAP Queue 1, item 11)")
+
+    ``mesh`` (parallel.mesh.ChainMesh): every process fills ``g / P`` of
+    the discounts (``g`` must divide by the P processes), then the V,
+    Srel and S1 shares are all-gathered along the grid axis.  Each
+    discount's walk is independent, so the gathered grid equals a
+    one-process fill of the same discounts bitwise."""
     avec = np.linspace(a_lo, a_hi, g)
+    if mesh is not None:
+        shard = _fill_shard(avec, n_max, m_max, build_s, build_v, dtype,
+                            mesh, device)
+        parts = _gather_shard(shard, mesh)
+        return _grid(avec, *parts, n_max, m_max, max_n, max_m, use_asympt,
+                     tag)
     s1 = np.stack([stirling.s1_host(float(a), n_max) for a in avec])
     return _finish_grid(avec, s1, n_max, m_max, build_s, build_v, dtype,
-                        device, max_n, max_m, use_asympt, tag)
+                        distributed.local_device(device), max_n, max_m,
+                        use_asympt, tag)
 
 
-def _finish_grid(avec, s1, n_max, m_max, build_s, build_v, dtype, device,
-                 max_n=0, max_m=0, use_asympt=True, tag=""):
+def _fill(avec, s1, n_max, m_max, build_s, build_v, dtype, device):
+    """(a, s1_hi, s1_lo, V or None, Srel or None) tensors of discounts
+    ``avec`` with host S1 rows ``s1``, filled on ``device``."""
     if dtype == torch.float64:
         s1_hi = torch.as_tensor(s1, device=device)
         s1_lo = torch.zeros_like(s1_hi)
@@ -316,13 +330,46 @@ def _finish_grid(avec, s1, n_max, m_max, build_s, build_v, dtype, device,
         s1_lo = torch.as_tensor(lo, device=device)
     a_t = torch.as_tensor(avec, dtype=dtype, device=device)
     vtab, srel = stirling_cuda.fill_grid(a_t, n_max, m_max, with_srel=build_s)
+    return (a_t, s1_hi, s1_lo, vtab if build_v else None,
+            srel if build_s else None)
+
+
+def _grid(avec, a_t, s1_hi, s1_lo, vtab, srel, n_max, m_max, max_n=0,
+          max_m=0, use_asympt=True, tag=""):
     return AGridTable(
         a0=float(avec[0]), da=float(avec[1] - avec[0]), g_max=len(avec),
-        n_max=n_max, m_max=m_max, avec=a_t,
-        s1_hi=s1_hi, s1_lo=s1_lo,
-        vtab=vtab if build_v else None,
-        srel=srel if build_s else None,
-        max_n=max_n, max_m=max_m, use_asympt=use_asympt, tag=tag)
+        n_max=n_max, m_max=m_max, avec=a_t, s1_hi=s1_hi, s1_lo=s1_lo,
+        vtab=vtab, srel=srel, max_n=max_n, max_m=max_m,
+        use_asympt=use_asympt, tag=tag)
+
+
+def _finish_grid(avec, s1, n_max, m_max, build_s, build_v, dtype, device,
+                 max_n=0, max_m=0, use_asympt=True, tag=""):
+    return _grid(avec, *_fill(avec, s1, n_max, m_max, build_s, build_v,
+                              dtype, device),
+                 n_max, m_max, max_n, max_m, use_asympt, tag)
+
+
+def _fill_shard(avec, n_max, m_max, build_s, build_v, dtype, mesh,
+                device=None):
+    """This process's share of a sharded grid fill: the tensors of
+    ``_fill`` for discounts [r g / P, (r + 1) g / P) of ``avec``."""
+    P, g = mesh.world, len(avec)
+    if g % P:
+        raise ValueError(f"grid size {g} not divisible by the mesh's {P} "
+                         "processes")
+    r = distributed.rank()
+    mine = avec[r * (g // P):(r + 1) * (g // P)]
+    s1 = np.stack([stirling.s1_host(float(a), n_max) for a in mine])
+    return _fill(mine, s1, n_max, m_max, build_s, build_v, dtype,
+                 mesh.device if device is None else torch.device(device))
+
+
+def _gather_shard(shard, mesh):
+    """All-gather a ``_fill_shard`` result along the grid axis: every rank
+    gets the whole grid's tensors."""
+    return tuple(None if x is None else pmesh._all_gather(x, mesh.world_group)
+                 for x in shard)
 
 
 def _grow_bucket(used: int, want: int) -> int:

@@ -22,8 +22,9 @@ test/ngg_integral.cpp):
 
 Everything is f64 by default: a function computes in the dtype of its
 first floating tensor argument, else in f64, on the device of its first
-tensor argument, else on ``device`` (torch's default device when that is
-None).  The JAX package's ``fori_loop`` / ``scan`` bodies are fixed-count
+tensor argument, else on ``device``; a call with plain numbers and no
+``device`` runs on the card (``parallel.distributed.local_device``) and
+raises where there is none -- the CPU only when asked for.  The JAX package's ``fori_loop`` / ``scan`` bodies are fixed-count
 Python loops over tensors here.  The table route cancels catastrophically
 beyond n ~ 35 even in f64, which is why the reference caps MAXN at 16; the
 scalable large-n path is the saddle point.
@@ -34,6 +35,7 @@ import math
 
 import torch
 
+from ..parallel.distributed import local_device
 from . import quadrature, special
 
 __all__ = ["log_gamma_inc_upper", "ngg_base_row", "ngg_table",
@@ -47,7 +49,7 @@ def _floats(*xs, device=None):
     tens = [x for x in xs if isinstance(x, torch.Tensor)]
     floating = [x for x in tens if x.is_floating_point()]
     dtype = floating[0].dtype if floating else torch.float64
-    dev = tens[0].device if tens else device
+    dev = tens[0].device if tens else local_device(device)
     return [torch.as_tensor(x, dtype=dtype, device=dev) for x in xs]
 
 
@@ -80,6 +82,7 @@ def ngg_base_row(a: float, M: float, n_max: int, *, device=None):
     S[1][n] = log( sum_{i=0}^{n-1} (-1)^i C(n-1, i) G_i ) - M,
     G_i = Gamma(1 - i/a, M) M^{i/a} e^M   (ngg_test.c:136-146, 232-239),
     summed in f64 where the reference sums in long double."""
+    device = local_device(device)
     i = torch.arange(n_max, dtype=torch.float64, device=device)
     Mt = torch.tensor(M, dtype=torch.float64, device=device)
     logG = log_gamma_inc_upper(1.0 - i / a, Mt) + torch.log(Mt) * i / a + M
@@ -132,6 +135,7 @@ def ngg_ratio_table(a: float, M: float, n_max: int, k_max: int,
     if method == "auto":
         method = "recurrence" if n_max <= 32 else "quadrature"
     if method == "quadrature":
+        device = local_device(device)
         n = torch.arange(1, n_max + 1, dtype=torch.float64, device=device)
         k = torch.arange(1, k_max + 1, dtype=torch.float64, device=device)
         nn, kk = torch.meshgrid(n, k, indexing="xy")    # (K, N)

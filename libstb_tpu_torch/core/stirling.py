@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import local_device
 from ..utils import yaps
 
 __all__ = ["StirlingTable", "make", "remake", "ensure", "fill_route",
@@ -43,8 +44,11 @@ def s1_host(a: float, n_max: int) -> np.ndarray:
 
 def s1_ingraph(a, n_max: int, dtype=torch.float32, device=None):
     """S1 for a tensor ``a`` (the rebuild-per-eval oracle path of samplea,
-    samplea.c:57-60) by torch lgamma; the host path is preferred whenever
-    ``a`` is a plain number."""
+    samplea.c:57-60) by torch lgamma, on ``a``'s device; a plain-number
+    ``a`` goes to ``device``, by default the card (raising where there is
+    none).  The host path is preferred whenever ``a`` is a plain number."""
+    if not isinstance(a, torch.Tensor):
+        device = local_device(device)
     a = torch.as_tensor(a, dtype=dtype, device=device)
     n = torch.arange(1, n_max + 1, dtype=dtype, device=a.device)
     return torch.lgamma(n - a) - torch.lgamma(1.0 - a)

@@ -1,3 +1,3 @@
-from . import mesh
+from . import distributed, mesh
 
-__all__ = ["mesh"]
+__all__ = ["distributed", "mesh"]

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..core import agrid, rng, special, stirling
+from ..parallel import mesh as pmesh
 from . import ars as arsmod
 from . import slice as slicemod
 
@@ -79,7 +80,7 @@ def a_bounds(a0):
 
 def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
              loops: int = 1, kernel: str = "slice",
-             sparse_chunk: Optional[int] = None):
+             sparse_chunk: Optional[int] = None, mesh=None):
     """Discount posterior step using the grid curve (samplea semantics).
 
     Args:
@@ -90,6 +91,12 @@ def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
         psample.h:101-115) -- from 2^18 pairs the curve reduction streams
         in chunks automatically; ``sparse_chunk`` forces the chunk size.
       T: (C, I) per-group table totals; b: (C, I) or (I,) concentrations.
+      mesh: a parallel.mesh.ChainMesh whose "data" axis shards the pair
+        axis: each rank passes its own pairs, its partial curve is summed
+        over the data group (in rank order, so the peers of a group get
+        the same curve and make the same move) before ``curve_at``.  The
+        collective runs once, before the 1-D sampler: none sits inside
+        its try loop, which each rank runs to its own slowest chain.
     Returns (a, ok).
     """
     dt = a0.dtype
@@ -103,6 +110,8 @@ def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
         curve = grid.data_curve_sparse(ns, ts, chunk=sparse_chunk)
     else:
         curve = grid.data_curve(ns, ts)
+    if mesh is not None:
+        curve = pmesh.sum_over(curve, mesh, pmesh.DATA_AXIS)
     if curve.ndim == 1:                    # shared data pairs across chains
         curve = curve.expand(a0.shape + curve.shape)
 

@@ -11,6 +11,14 @@ a JSON sidecar (``<path>.npz.json``) with the container structure and the
 metadata.  The idea is the JAX package's; the structure is the port's own
 (JAX's treedef proto cannot be read without JAX), so neither package reads
 the other's checkpoints.
+
+Multi-process (``torch.distributed`` world of P > 1): each rank writes
+``<path>.p<rank>.npz`` (+ sidecar) with its own chain shards, so saves on
+a shared filesystem never collide; the sidecar also records the world
+size, the rank and which leaves are chain-sharded.  ``load`` reads this
+rank's file and returns its local state, which a resume re-shards with
+``parallel.mesh.shard_chain_tree_global``.  A one-process save keeps the
+plain name and format.
 """
 from __future__ import annotations
 
@@ -21,26 +29,42 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel import distributed
+
 __all__ = ["save", "load"]
 
 _FORMAT = 1
 
 
 def _npz_path(path: str) -> str:
-    return path if path.endswith(".npz") else path + ".npz"
+    """``path`` with .npz, and in a multi-process world this rank's
+    ``.p<rank>`` before it (unless already there)."""
+    if path.endswith(".npz"):
+        path = path[:-len(".npz")]
+    if distributed.is_distributed():
+        suffix = f".p{distributed.rank()}"
+        if not path.endswith(suffix):
+            path += suffix
+    return path + ".npz"
 
 
-def save(path: str, state: Any, meta: Optional[dict] = None) -> str:
+def save(path: str, state: Any, meta: Optional[dict] = None,
+         chains: Optional[int] = None) -> str:
     """Write ``state`` -- tensors, ``torch.Generator``s and None, in
     nested dicts (string keys), lists and tuples -- and ``meta`` (JSON-
-    able) to ``path`` (.npz appended if missing).  Returns the final
-    path."""
+    able) to ``path`` (.npz appended if missing; ``.p<rank>`` before it
+    in a multi-process world).  ``chains``: this rank's chain count; a
+    multi-process sidecar lists the tensors whose leading dim it is as
+    chain-sharded.  Returns the final path."""
     arrays = {}
+    sharded = []
 
     def encode(x):
         key = f"leaf{len(arrays)}"
         if isinstance(x, torch.Tensor):
             arrays[key] = x.detach().cpu().numpy()
+            if chains is not None and x.ndim >= 1 and x.shape[0] == chains:
+                sharded.append(key)
             return {"tensor": key}
         if isinstance(x, torch.Generator):
             arrays[key] = x.get_state().numpy()
@@ -61,13 +85,19 @@ def save(path: str, state: Any, meta: Optional[dict] = None) -> str:
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
+    side = {"format": _FORMAT, "tree": tree, "meta": meta or {}}
+    if distributed.is_distributed():
+        side.update(world_size=distributed.world_size(),
+                    rank=distributed.rank(), chain_sharded=sharded)
     with open(path + ".json", "w") as f:
-        json.dump({"format": _FORMAT, "tree": tree, "meta": meta or {}}, f)
+        json.dump(side, f)
     return path
 
 
 def load(path: str, like: Any = None, device=None):
-    """Read a checkpoint; returns (state, meta).
+    """Read a checkpoint (in a multi-process world, this rank's
+    ``.p<rank>`` file, which must come from a world of the same size);
+    returns (state, meta).
 
     Tensors go to ``device`` if given, else to the device of the matching
     tensor of ``like`` (a state of the same structure), else to the CPU.
@@ -81,6 +111,11 @@ def load(path: str, like: Any = None, device=None):
     if side.get("format") != _FORMAT:
         raise ValueError(f"{path}: checkpoint format {side.get('format')}, "
                          f"this reader knows {_FORMAT}")
+    want = (distributed.world_size(), distributed.rank())
+    got = (side.get("world_size", 1), side.get("rank", 0))
+    if got != want:
+        raise ValueError(f"{path}: saved by rank {got[1]} of {got[0]}, "
+                         f"read by rank {want[1]} of {want[0]}")
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
 

@@ -5,6 +5,8 @@ identical tables carried across by convert.grid_from_numpy, so only the
 query arithmetic is compared.  In-table queries are pure arithmetic in
 the same order (rtol 1e-12); asymptote branches go through lgamma, which
 differs between XLA and torch in the last bits (rtol 1e-11)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from libstb_tpu.core import agrid as jag
 from libstb_tpu.utils.yaps import LibstbError as JaxLibstbError
 from libstb_tpu_torch import convert
 from libstb_tpu_torch.core import agrid as tag
+from libstb_tpu_torch.parallel import mesh as pmesh
 from libstb_tpu_torch.utils.yaps import LibstbError
 
 torch.set_num_threads(1)
@@ -229,5 +232,15 @@ def test_ensure_grid_matches_jax():
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tag.make_grid(32, 16, g=8, device="cpu", mesh=object())
+    """The sharded fill is ported (tests/test_torch_parallel.py runs it
+    under 2 and 4 processes): on a world of one process a mesh gives the
+    plain grid bitwise, and a grid that does not divide by the processes
+    raises, as JAX's does."""
+    cm = pmesh.chain_mesh(device="cpu")
+    a = tag.make_grid(32, 16, g=8, mesh=cm)
+    b = tag.make_grid(32, 16, g=8, device="cpu")
+    for k in ("avec", "s1_hi", "s1_lo", "vtab", "srel"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    with pytest.raises(ValueError, match="not divisible"):
+        tag._fill_shard(np.linspace(0, 0.99, 9), 32, 16, True, True,
+                        torch.float32, dataclasses.replace(cm, sizes=(2,)))

@@ -26,6 +26,8 @@ from scipy.special import gammaincc
 from libstb_tpu.core import ngg as jngg
 from libstb_tpu.core import quadrature as jquad
 from libstb_tpu_torch.core import ngg, quadrature
+from libstb_tpu_torch.core import stirling as tst
+from libstb_tpu_torch.parallel import distributed
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from torch_ngg_ref import (EPS, KAPPA_ULPS, cli_points,  # noqa: E402
@@ -50,8 +52,8 @@ def test_log_gamma_inc_upper_equal():
     got = ngg.log_gamma_inc_upper(torch.tensor(s), torch.tensor(x))
     assert got.dtype == F64
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
-    for si, xi in GAMMA_POINTS[:3]:           # scalars: f64 on the CPU
-        v = ngg.log_gamma_inc_upper(si, xi)
+    for si, xi in GAMMA_POINTS[:3]:           # scalars: f64
+        v = ngg.log_gamma_inc_upper(si, xi, device="cpu")
         assert v.dtype == F64 and v.device.type == "cpu"
 
 
@@ -60,7 +62,7 @@ def test_base_row_equal(n_max):
     """rtol 1e-10 to n = 16 (the reference's MAXN); at n = 30 the sum
     cancels and the bound applies."""
     want = np.asarray(jngg.ngg_base_row(A, M, n_max))
-    got = ngg.ngg_base_row(A, M, n_max).numpy()
+    got = ngg.ngg_base_row(A, M, n_max, device="cpu").numpy()
     np.testing.assert_allclose(got[:16], want[:16], rtol=1e-10)
     kap = table_kappa(A, M, n_max, 1)[0][0]
     assert (np.abs(got - want)
@@ -70,7 +72,7 @@ def test_base_row_equal(n_max):
 @pytest.mark.parametrize("N,K", [(16, 10), (14, 7), (8, 8)])
 def test_table_equal_within_cancellation_bound(N, K):
     kap, want = table_kappa(A, M, N, K)
-    got = ngg.ngg_table(A, M, N, K).numpy()
+    got = ngg.ngg_table(A, M, N, K, device="cpu").numpy()
     assert got.shape == (K, N)
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
     fin = np.isfinite(want)
@@ -84,15 +86,16 @@ def test_table_equal_within_cancellation_bound(N, K):
 @pytest.mark.parametrize("N,K", [(16, 10), (14, 7)])
 def test_ratio_table_recurrence_equal(N, K):
     rho, want = ratio_kappa(A, M, N, K)
-    got = ngg.ngg_ratio_table(A, M, N, K, method="recurrence").numpy()
+    got = ngg.ngg_ratio_table(A, M, N, K, method="recurrence",
+                              device="cpu").numpy()
     np.testing.assert_array_equal(got == 0, want == 0)
     v = want != 0
     assert (np.abs(got[v] - want[v]) / np.abs(want[v])
             <= KAPPA_ULPS * EPS * rho[v]).all()
     # a table handed in is used as the K=1 row
-    tab = ngg.ngg_table(A, M, N, 1)
+    tab = ngg.ngg_table(A, M, N, 1, device="cpu")
     assert torch.equal(ngg.ngg_ratio_table(A, M, N, K, table=tab,
-                                           method="recurrence"),
+                                           method="recurrence", device="cpu"),
                        torch.as_tensor(got))
 
 
@@ -100,7 +103,7 @@ def test_ratio_table_recurrence_equal(N, K):
                                         (40, 4, "auto"), (20, 6, "auto")])
 def test_ratio_table_methods_equal(N, K, method):
     want = np.asarray(jngg.ngg_ratio_table(A, M, N, K, method=method))
-    got = ngg.ngg_ratio_table(A, M, N, K, method=method).numpy()
+    got = ngg.ngg_ratio_table(A, M, N, K, method=method, device="cpu").numpy()
     assert got.shape == want.shape == (K, N - 1)
     np.testing.assert_array_equal(got == 0, want == 0)
     if N <= 32:          # auto -> recurrence: the cancellation bound
@@ -172,10 +175,32 @@ def test_hmax_bounds_and_helpers_equal():
                                    rtol=1e-12)
 
 
+@pytest.mark.parametrize("call", [
+    lambda: ngg.umax_log(A, M, 10.0, 3.0),
+    lambda: ngg.ngg_table(A, M, 8, 3),
+    lambda: ngg.ngg_ratio_table(A, M, 40, 3),
+    lambda: tst.s1_ingraph(0.5, 10)])
+def test_plain_numbers_go_to_the_card(call, monkeypatch):
+    """A call with plain numbers and no ``device`` asks for the card: with
+    none it raises (never runs on the CPU quietly); told that there are
+    two, it builds its tensors on cuda:LOCAL_RANK % 2, which this CPU
+    build of torch refuses."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert distributed.local_device() == torch.device("cuda", 1)
+    assert distributed.local_device("cpu") == torch.device("cpu")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        call()
+
+
 def test_dtype_and_device_follow_the_arguments():
     """f64 from Python scalars; a float32 tensor argument sets the dtype;
     ``device`` places scalar-only calls."""
-    assert ngg.umax_log(A, M, 10.0, 3.0).dtype == F64
+    assert ngg.umax_log(A, M, 10.0, 3.0, device="cpu").dtype == F64
     v = ngg.umax_log(A, M, torch.tensor([10.0, 12.0]), 3.0)
     assert v.dtype == torch.float32
     assert ngg.ngg_table(A, M, 8, 3, device="cpu").device.type == "cpu"
@@ -202,7 +227,7 @@ def test_quadrature_rules_equal():
 
 def test_gamma_inc_cf_vs_scipy():
     for s, x in GAMMA_POINTS[:4]:
-        got = float(ngg.log_gamma_inc_upper(s, x))
+        got = float(ngg.log_gamma_inc_upper(s, x, device="cpu"))
         np.testing.assert_allclose(got, np.log(gammaincc(s, x) * _gamma(s)),
                                    rtol=1e-12)
 
@@ -210,31 +235,32 @@ def test_gamma_inc_cf_vs_scipy():
 def test_gamma_inc_negative_s_recurrence():
     x = 10.0
     for s in [-0.5, -3.7, -20.0]:
-        g1 = np.exp(float(ngg.log_gamma_inc_upper(s + 1.0, x)))
-        gs = np.exp(float(ngg.log_gamma_inc_upper(s, x)))
+        g1 = np.exp(float(ngg.log_gamma_inc_upper(s + 1.0, x, device="cpu")))
+        gs = np.exp(float(ngg.log_gamma_inc_upper(s, x, device="cpu")))
         np.testing.assert_allclose(gs, (g1 - x ** s * np.exp(-x)) / s,
                                    rtol=1e-9, err_msg=f"s={s}")
 
 
 def test_table_vs_quadrature():
-    tab = ngg.ngg_table(A, M, 16, 10).numpy()
+    tab = ngg.ngg_table(A, M, 16, 10, device="cpu").numpy()
     for (n, k) in [(10, 3), (14, 5), (15, 1), (12, 8)]:
-        q = float(ngg.ngg_quadrature_log(A, M, float(n), float(k)))
+        q = float(ngg.ngg_quadrature_log(A, M, float(n), float(k),
+                                         device="cpu"))
         np.testing.assert_allclose(tab[k - 1, n - 1], q, rtol=0, atol=2e-4,
                                    err_msg=f"n={n} k={k}")
 
 
 def test_saddle_point_accuracy():
-    tab = ngg.ngg_table(A, M, 16, 10).numpy()
+    tab = ngg.ngg_table(A, M, 16, 10, device="cpu").numpy()
     for (n, k) in [(10, 3), (14, 5), (12, 8)]:
-        u = float(ngg.umax_log(A, M, float(n), float(k)))
+        u = float(ngg.umax_log(A, M, float(n), float(k), device="cpu"))
         assert abs(u - tab[k - 1, n - 1]) < 0.1, (n, k)
 
 
 def test_ratio_table_matches_diffs_and_helpers():
     N, K = 14, 7
-    tab = ngg.ngg_table(A, M, N, K).numpy()
-    R = ngg.ngg_ratio_table(A, M, N, K)
+    tab = ngg.ngg_table(A, M, N, K, device="cpu").numpy()
+    R = ngg.ngg_ratio_table(A, M, N, K, device="cpu")
     for k in range(1, K + 1):
         for n in range(k, N):
             want = np.exp(tab[k - 1, n] - tab[k - 1, n - 1])
@@ -250,43 +276,45 @@ def test_ratio_table_matches_diffs_and_helpers():
 
 
 def test_ratio_table_large_n_stable():
-    R = ngg.ngg_ratio_table(0.3, 5.0, 200, 12).numpy()
+    R = ngg.ngg_ratio_table(0.3, 5.0, 200, 12, device="cpu").numpy()
     valid = R[:, 50:]
     assert np.isfinite(valid).all() and (valid[11][60:] > 0).all()
-    Rs = ngg.ngg_ratio_table(0.3, 5.0, 20, 6, method="recurrence").numpy()
-    Rq = ngg.ngg_ratio_table(0.3, 5.0, 20, 6, method="quadrature").numpy()
+    Rs = ngg.ngg_ratio_table(0.3, 5.0, 20, 6, method="recurrence",
+                             device="cpu").numpy()
+    Rq = ngg.ngg_ratio_table(0.3, 5.0, 20, 6, method="quadrature",
+                             device="cpu").numpy()
     for k in range(1, 7):
         np.testing.assert_allclose(Rq[k - 1, k - 1:14], Rs[k - 1, k - 1:14],
                                    rtol=1e-4, err_msg=f"k={k}")
 
 
 def test_four_way_cross_check():
-    tab = ngg.ngg_table(A, M, 16, 10).numpy()
+    tab = ngg.ngg_table(A, M, 16, 10, device="cpu").numpy()
     for (n, k) in ((3, 2), (6, 5), (10, 5), (15, 5)):
         t = tab[k - 1, n - 1]
         n_, k_ = float(n), float(k)
-        q = float(ngg.ngg_quadrature_log(A, M, n_, k_))
-        u = float(ngg.umax_log(A, M, n_, k_))
-        h = float(ngg.hmax_log(A, M, n_, k_))
-        h2 = float(ngg.hmax2_log(A, M, n_, k_, iters=200))
-        g = float(ngg.gmax_log(A, M, n_, k_))
+        q = float(ngg.ngg_quadrature_log(A, M, n_, k_, device="cpu"))
+        u = float(ngg.umax_log(A, M, n_, k_, device="cpu"))
+        h = float(ngg.hmax_log(A, M, n_, k_, device="cpu"))
+        h2 = float(ngg.hmax2_log(A, M, n_, k_, iters=200, device="cpu"))
+        g = float(ngg.gmax_log(A, M, n_, k_, device="cpu"))
         assert abs(q - t) < 1e-5 and abs(g - t) < 0.05, (n, k, q, g, t)
         assert abs(u - t) < 0.1 and abs(h - t) < 0.8, (n, k, u, h, t)
         assert abs(h2 - h) < 1e-4, (n, k, h2, h)
     for (n, k) in ((1000.0, 50.0), (10000.0, 200.0)):
-        u = float(ngg.umax_log(A, M, n, k))
-        g = float(ngg.gmax_log(A, M, n, k))
-        h = float(ngg.hmax_log(A, M, n, k))
+        u = float(ngg.umax_log(A, M, n, k, device="cpu"))
+        g = float(ngg.gmax_log(A, M, n, k, device="cpu"))
+        h = float(ngg.hmax_log(A, M, n, k, device="cpu"))
         assert abs(u - g) < 1e-2 * abs(u), (n, k, u, g)
         assert abs(u - h) < 1e-2 * abs(u) + 1.5, (n, k, u, h)
 
 
 def test_hmax_bounds_window_quadrature():
-    tab = ngg.ngg_table(A, M, 16, 10).numpy()
+    tab = ngg.ngg_table(A, M, 16, 10, device="cpu").numpy()
 
     def windowed(n, k):
         _, _, lo, hi = ngg.hmax_log(A, M, float(n), float(k),
-                                    with_bounds=True)
+                                    with_bounds=True, device="cpu")
         a, m, nf, kf = (torch.tensor(v, dtype=F64) for v in (A, M, n, k))
         q = quadrature.tanh_sinh_log(
             lambda s: -ngg._h(s, a, m, nf, kf),
@@ -296,15 +324,16 @@ def test_hmax_bounds_window_quadrature():
     for (n, k) in ((3, 2), (10, 5), (15, 5)):
         assert abs(windowed(n, k) - tab[k - 1, n - 1]) < 1e-5
     n, k = 10000, 200
-    full = float(ngg.ngg_quadrature_log(A, M, float(n), float(k)))
+    full = float(ngg.ngg_quadrature_log(A, M, float(n), float(k),
+                                        device="cpu"))
     win = windowed(n, k)
-    u = float(ngg.umax_log(A, M, float(n), float(k)))
+    u = float(ngg.umax_log(A, M, float(n), float(k), device="cpu"))
     assert abs(win - u) < 1e-2 * abs(u)
     assert abs(win - full) > 1.0
 
 
 def test_hmax2_signals_divergence():
-    assert torch.isnan(ngg.hmax2_log(0.1, 10.0, 1000.0, 50.0))
+    assert torch.isnan(ngg.hmax2_log(0.1, 10.0, 1000.0, 50.0, device="cpu"))
 
 
 def test_quadrature_batched_and_known_integrals():
@@ -314,7 +343,7 @@ def test_quadrature_batched_and_known_integrals():
                                  torch.full((3,), M, dtype=F64), n, k)
     for i in range(3):
         single = float(ngg.ngg_quadrature_log(A, M, float(n[i]),
-                                              float(k[i])))
+                                              float(k[i]), device="cpu"))
         np.testing.assert_allclose(float(out[i]), single, rtol=1e-10)
     v = float(quadrature.tanh_sinh(lambda x: x * x, 0.0, 1.0))
     np.testing.assert_allclose(v, 1.0 / 3.0, rtol=1e-10)

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax():
     assert {"libstb_tpu_torch.parallel.mesh", "libstb_tpu_torch.models.hpyp",
             "libstb_tpu_torch.core.ngg", "libstb_tpu_torch.core.quadrature",
             "libstb_tpu_torch.utils.checkpoint",
-            "libstb_tpu_torch.utils.metrics"} <= set(_modules())
+            "libstb_tpu_torch.utils.metrics",
+            "libstb_tpu_torch.parallel.distributed",
+            "libstb_tpu_torch.native"} <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['libstb_tpu'] = None\n"
