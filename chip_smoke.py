@@ -128,12 +128,27 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      (G = 1), K2, K3 and the plain fill in f32 and f64 (max |d log S|,
      |dSrel|, V relative error; each kernel within 1.5 x its plain
      version's error + 1e-7 and the bench bounds 5e-2 / 1e-4), and the
-     native crp_generate against the Python one at check.c's MAXDATA.
+     native crp_generate against the Python one at check.c's MAXDATA;
+ 18. the ported on-device tools at their own sizes, earlier phases' memory
+     freed first: (a) tools/extra_bench_torch.py's make at (2^20, 1024)
+     through K3, its wall time and apart its fill, host S1 and copy, the
+     table equal bitwise to a direct K3 fill and its S1 pair to
+     _split_hi_lo(s1_host); (b) its ensure(2^19 -> 2^20): time, peak
+     allocated memory beside the old and new tables' bytes, the grown table
+     bitwise equal to a fresh make; (c) its sparse sample_a over 2^20 + 17
+     pairs (C = 4, a make_grid(96, 32, g=16) grid through K1, 8 moves):
+     samples/s, every a in [A_MIN, A_MAX], the streamed curve within 1e-5
+     of max |curve| of one whole-pair gather; (d) data_curve's gather route
+     and the one-hot product route (_data_curve_mm, run with allow_tf32 on)
+     at the Quick-start's sample_a shape (make_grid(512, 128, g=64), 80
+     pairs) at 1024 and 16384 chains: each timed, within 1e-5 of max
+     |curve| of each other; (e) tools/lgcache_bench_torch.py at batch 2^20,
+     4 reps.
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
 over the paths of phases 3, 7, 9, 10, 11, 12, 13, 14, 16a-d (over each
-path's ranks, which report theirs in a RANK json line) and 17, each driven
+path's ranks, which report theirs in a RANK json line), 17 and 18, each driven
 with the counts set to 0 just before it; "launches_by_path" splits them),
 error and times; the last line is {"ok": true, "device": {...}}.
 
@@ -2149,6 +2164,111 @@ def phase17_oracle(dev, sc, stirling, pyp, card):
     return launches
 
 
+SPARSE_P, SPARSE_C = (1 << 20) + 17, 4    # 18c: extra_bench.py's shape
+CURVE_CHAINS = (1024, 16384)              # 18d: the Quick-start's and 16x
+LGCACHE_REPS = 4                          # 18e: the tool's 32 cut to 4
+
+
+def phase18_tools(dev, sc, agrid, stirling, pyp, card):
+    """The JAX package's on-device tools, ported (tools/extra_bench_torch.py,
+    tools/lgcache_bench_torch.py), at their own sizes; both data_curve
+    routes at the Quick-start's sample_a shape.  Returns the kernels'
+    launches in the phase."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import extra_bench_torch as eb
+    import lgcache_bench_torch as lb
+    from libstb_tpu_torch.samplers import hyper
+
+    torch.cuda.empty_cache()
+    reset_launches(sc)
+    N, M = 1 << 20, 1024
+    t0 = phase(f"18a production make({N}, {M}) through K3: wall, fill, host "
+               "S1, copy")
+    mk = eb.bench_make(dev, card, n=N, m=M)
+    check(mk["route"] == "fill_table_cols", f"make({N}, {M}) routed to "
+          f"{mk['route']}, not K3")
+    tab = stirling.make(N, M, 2 * N, 2 * M, 0.5, use_asympt=True, device=dev)
+    v, s = sc.fill_table_cols(torch.tensor(0.5, device=dev), N, M)
+    check(tab.cols and torch.equal(tab.vtab, v) and torch.equal(tab.srel, s),
+          "18a: make's tables differ from a direct K3 fill")
+    hi, lo = stirling._split_hi_lo(stirling.s1_host(0.5, N))
+    check(np.array_equal(tab.s1_hi.cpu().numpy(), hi)
+          and np.array_equal(tab.s1_lo.cpu().numpy(), lo),
+          "18a: make's S1 pair differs from _split_hi_lo(s1_host)")
+    del tab, v, s
+    print(f"   host S1 + copy = "
+          f"{mk['s1_host_ms'] + mk['split_ms'] + mk['h2d_ms']:.4f} ms beside "
+          f"the {mk['fill_ms']:.4f} ms fill [{card}]")
+    done(t0)
+
+    t0 = phase(f"18b ensure({N // 2} -> {N}): time and peak memory")
+    torch.cuda.empty_cache()
+    en = eb.bench_ensure(dev, card, n=N, m=M)
+    check(en["equal_fresh"], "18b: the grown table differs from a fresh "
+          "make")
+    print(f"   the call added {(en['peak'] - en['before']) / 1e9:.4f} GB at "
+          f"its peak to {en['before'] / 1e9:.4f} GB held (old "
+          f"{en['old'] / 1e9:.4f} GB, new {en['new'] / 1e9:.4f} GB) [{card}]")
+    done(t0)
+
+    t0 = phase(f"18c sparse sample_a over {SPARSE_P} pairs, C = {SPARSE_C}")
+    torch.cuda.empty_cache()
+    sp = eb.bench_sparse(dev, card, P=SPARSE_P, C=SPARSE_C)
+    a = sp["a"]
+    check(bool(((a >= hyper.A_MIN) & (a <= hyper.A_MAX)).all()),
+          f"18c: a outside [A_MIN, A_MAX]: {a.tolist()}")
+    grid = agrid.make_grid(96, 32, g=16, device=dev)
+    ns, ts, _ = eb.sparse_inputs(SPARSE_P, SPARSE_C, dev)
+    streamed = grid.data_curve_sparse(ns, ts, chunk=1 << 16)
+    whole = grid._data_curve_gather(ns, ts)
+    err = ((streamed - whole).abs().max() / whole.abs().max()).item()
+    print(f"   a = {a.tolist()}; streamed vs whole-pair gather curve: max "
+          f"|diff| / max |curve| {err:.4g}")
+    check(err <= 1e-5, f"18c: streamed curve off by {err:.3g} of max |curve|")
+    del grid, ns, ts, streamed, whole
+    done(t0)
+
+    t0 = phase("18d data_curve by gathers and by the one-hot product at the "
+               "Quick-start's sample_a shape")
+    grid = agrid.make_grid(512, 128, g=64, device=dev)
+    data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
+    n_flat = data.n.reshape(-1)
+    ns = torch.as_tensor(n_flat, device=dev)
+    r = np.random.default_rng(18)
+    for C in CURVE_CHAINS:
+        ts = torch.as_tensor(np.where(n_flat > 0, r.integers(
+            1, np.maximum(n_flat, 1) + 1, (C, n_flat.size)), 0), device=dev)
+        g_ms = cuda_ms(lambda: grid._data_curve_gather(ns, ts), 7)
+        gather = grid._data_curve_gather(ns, ts)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            mm = grid._data_curve_mm(ns, ts)
+            mm_ms = cuda_ms(lambda: grid._data_curve_mm(ns, ts), 7)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        err = ((mm - gather).abs().max() / gather.abs().max()).item()
+        print(f"   {C} chains x {n_flat.size} pairs x {grid.g_max} "
+              f"discounts: gather {g_ms:.4f} ms, one-hot product "
+              f"{mm_ms:.4f} ms (allow_tf32 on), max |diff| / max |curve| "
+              f"{err:.4g} (CUDA events, median of 7) [{card}]")
+        check(tuple(mm.shape) == tuple(gather.shape) == (C, grid.g_max),
+              "18d: curve shapes")
+        check(err <= 1e-5, f"18d: the routes differ by {err:.3g} of max "
+              f"|curve| at {C} chains")
+    del grid
+    done(t0)
+
+    t0 = phase(f"18e lgcache_bench: batch 2^20, {LGCACHE_REPS} reps")
+    rows = lb.run(dev, card, reps=LGCACHE_REPS)
+    check(all(np.isfinite(x) and x > 0 for x in rows.values()),
+          f"18e: {rows}")
+    done(t0)
+    launches = dict(sc.LAUNCHES)
+    print(f"   launches in phase 18: {launches}")
+    return launches
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -2318,6 +2438,7 @@ def main():
         ngg_one = phase15_ngg(dev, card, json.load(f))
     paths.update(phase16_multidevice(dev, card, ngg_one))
     paths["17"] = phase17_oracle(dev, sc, stirling, pyp, card)
+    paths["18"] = phase18_tools(dev, sc, agrid, stirling, pyp, card)
     # every kernel of a path was launched in that path's own run
     for path, names in (("3", ["fill_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
@@ -2332,7 +2453,8 @@ def main():
                         ("16c", ["fill_grid"]),
                         ("16d", ["fill_grid"]),
                         ("17", ["fill_grid", "fill_table",
-                                "fill_table_cols"])):
+                                "fill_table_cols"]),
+                        ("18", ["fill_grid", "fill_table_cols"])):
         for name in names:
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")

@@ -6,10 +6,11 @@ at any per-chain ``a`` interpolate along the grid axis by Catmull-Rom
 cubics.  The fill runs where the tensors live: the hand-written CUDA
 kernel on a GPU, the plain fill on the CPU (ops/stirling_cuda.fill_grid).
 
-``data_curve`` always takes the gather route; the JAX package's one-hot
-matmul route (``_data_curve_mm``) exists for the TPU's matrix unit and
-tests/test_torch_agrid.py holds the gather route equal to both JAX
-routes; ``data_curve_sparse`` streams the same reduction over the pairs in
+``data_curve`` always takes the gather route (``_data_curve_gather``);
+the JAX package's one-hot matmul route is ported as ``_data_curve_mm``,
+held to both JAX routes by tests/test_torch_agrid.py and timed beside the
+gather route on the card (PERF.md section 6), but no caller takes it;
+``data_curve_sparse`` streams the gather reduction over the pairs in
 chunks.  ``make_grid(mesh=...)`` is the sharded fill: each process fills
 its share of the discounts and the shares are all-gathered, so every rank
 holds the whole grid (a query at any chain's ``a`` reads every discount,
@@ -30,6 +31,9 @@ from ..utils import yaps
 from . import stirling
 
 __all__ = ["AGridTable", "make_grid", "ensure_grid", "required_dims"]
+
+# the most bytes _data_curve_mm's one-hot or row block takes at once
+MM_BUDGET = 256 << 20
 
 
 def _catmull_weights(t, dtype):
@@ -234,7 +238,18 @@ class AGridTable:
         Entries with n<=1 contribute 0 (samplea.c:73-79 skips n<=1); t==n
         contributes 0 and t==1 contributes S1.  Returns (G,), or (..., G)
         for ts/ns with leading axes.  Out-of-grid non-identity pairs must
-        be covered by growing the grid first (ensure_grid)."""
+        be covered by growing the grid first (ensure_grid).
+
+        Every input takes the gather route, ``_data_curve_gather``, where
+        the JAX package takes its one-hot matmul route for shared ``ns``
+        and m_max <= 512.  ``_data_curve_mm`` is that route; both are timed
+        on the card in PERF.md section 6, and which one ``sample_a`` should
+        take is left to a benchmark cell (ROADMAP.md)."""
+        return self._data_curve_gather(ns, ts, weights)
+
+    def _data_curve_gather(self, ns, ts, weights=None):
+        """data_curve by gathers: (G, ..., P) table reads, masked and
+        summed over the pairs (libstb_tpu/core/agrid.py:258-272)."""
         ns, ts = self._int(ns), self._int(ts)
         shape = torch.broadcast_shapes(ns.shape, ts.shape)
         ns = ns.expand(shape)
@@ -250,12 +265,57 @@ class AGridTable:
         out = torch.sum(vals * w, dim=-1)         # (G, ...) summed over pairs
         return torch.movedim(out, 0, -1)          # (..., G)
 
+    def _data_curve_mm(self, ns, ts, weights=None):
+        """data_curve as a one-hot contraction for counts ``ns`` (P,)
+        shared by the chains (libstb_tpu/core/agrid.py:315-343): rows[g, p,
+        m] = S1(n_p) + Srel(n_p, m + 1), non-finite rows zeroed (-inf * 0
+        is NaN), times the one-hot of clip(t - 1) weighted by the mask
+        (n > 1) & (1 <= t <= n) & (t != n).  ``ts``: (..., P); returns
+        (..., G).
+
+        The pair axis runs in chunks so that neither the (C, chunk * M)
+        one-hot nor the (G, chunk, M) row block passes MM_BUDGET bytes;
+        the chunks' products are summed.  Each product is taken in f64
+        and the sum rounded to the table's dtype once: the TF32 switches
+        (torch.backends.cuda.matmul.allow_tf32,
+        torch.set_float32_matmul_precision) reach only f32 products, and a
+        10-bit mantissa on log S ~ 10^4 would move the curve by ~10."""
+        ns, ts = self._int(ns), self._int(ts)
+        if ns.ndim != 1:
+            raise ValueError(f"_data_curve_mm: ns must be the (P,) counts "
+                             f"the chains share, got shape {tuple(ns.shape)}")
+        dt, G, M = self.srel.dtype, self.g_max, self.m_max
+        P = ns.shape[-1]
+        lead = ts.shape[:-1]
+        ts = ts.reshape(-1, P)
+        C = ts.shape[0]
+        w_all = None if weights is None else torch.as_tensor(
+            weights, dtype=dt, device=self.device).expand(
+                lead + (P,)).reshape(C, P)
+        f64 = torch.float64
+        chunk = max(1, min(P, MM_BUDGET // (8 * M * max(C, G))))
+        out = torch.zeros((C, G), dtype=f64, device=self.device)
+        for p0 in range(0, P, chunk):
+            n, t = ns[p0:p0 + chunk], ts[:, p0:p0 + chunk]
+            i = torch.clamp(n - 1, 0, self.n_max - 1)
+            rows = (self.s1_hi[:, i, None] + self.srel[:, i, :]
+                    + self.s1_lo[:, i, None])           # (G, chunk, M)
+            rows = torch.where(torch.isfinite(rows), rows, 0.0)
+            mask = (n > 1) & (t >= 1) & (t <= n) & (t != n)
+            w = (mask.to(dt) if w_all is None
+                 else w_all[:, p0:p0 + chunk] * mask)
+            j = torch.clamp(t - 1, 0, M - 1)
+            oh = torch.zeros(t.shape + (M,), dtype=f64, device=self.device)
+            oh.scatter_(-1, j[..., None].long(), w[..., None].to(f64))
+            out += oh.reshape(C, -1) @ rows.reshape(G, -1).to(f64).T
+        return out.to(dt).reshape(lead + (G,))
+
     def data_curve_sparse(self, ns, ts, weights=None, chunk: int = 65536):
         """Streaming data_curve (the ``getval`` capability,
-        psample.h:101-115): the same reduction taken over the pair axis
+        psample.h:101-115): the gather reduction taken over the pair axis
         ``chunk`` pairs at a time, so sample_a handles 10^6 occupied pairs
         without a (G, C, P) intermediate -- peak memory is O(G * C *
-        chunk), the work that of data_curve.
+        chunk), the work that of the gather route.
 
         ``ns``: (P,) counts; ``ts``: (P,) or (C, P) tables; the caller
         passes OCCUPIED pairs only.  Returns data_curve's (..., G) curve."""
@@ -265,7 +325,7 @@ class AGridTable:
                           device=self.device)
         for p0 in range(0, ns.shape[-1], chunk):
             seg = slice(p0, p0 + chunk)
-            out = out + self.data_curve(
+            out = out + self._data_curve_gather(
                 ns[..., seg], ts[..., seg],
                 None if weights is None else weights[..., seg])
         return out

@@ -142,6 +142,86 @@ def test_data_curve_matches_both_jax_routes(grids):
         jnp.asarray(ns), jnp.asarray(ts[0]))), rtol=1e-12)
 
 
+def _mm_inputs(case, rng):
+    """Shared (P,) counts and (C, P) tables with t == n beyond m_max
+    (60), an all-singleton pair past it, n <= 1 and t == 1; ``case``
+    "weights" adds (C, P) weights, "single" takes one (P,) row of ts."""
+    P, C = 37, 6
+    ns = rng.integers(0, 190, P)
+    ts = np.minimum(rng.integers(1, 60, (C, P)), np.maximum(ns, 1)[None])
+    ns[:4] = [90, 150, 1, 0]
+    ts[:, 0], ts[:, 1], ts[:, 2], ts[:, 3] = 90, 1, 1, 0
+    ts[0, 4:8] = ns[4:8]                       # t == n, some past m_max
+    w = rng.uniform(0.5, 2.0, (C, P)) if case == "weights" else None
+    return ns, (ts[1] if case == "single" else ts), w
+
+
+@pytest.mark.parametrize("case", ["chains", "weights", "single"])
+@pytest.mark.parametrize("dtype,rtol", [("float64", 1e-10),
+                                        ("float32", 1e-5)])
+def test_data_curve_mm_matches_jax(case, dtype, rtol):
+    """The port's one-hot route against JAX's _data_curve_mm (and the
+    gather route) on identical tables."""
+    jg = jag.make_grid(200, 60, g=40, dtype=getattr(jnp, dtype))
+    tg = _carry(jg)
+    ns, ts, w = _mm_inputs(case, np.random.default_rng(8))
+    want = np.asarray(jg._data_curve_mm(
+        jnp.asarray(ns), jnp.asarray(ts), None if w is None
+        else jnp.asarray(w, getattr(jnp, dtype))))
+    args = (torch.tensor(ns), torch.tensor(ts),
+            None if w is None else torch.tensor(w, dtype=tg.srel.dtype))
+    got = tg._data_curve_mm(*args)
+    assert got.dtype == tg.srel.dtype
+    assert tuple(got.shape) == want.shape == ts.shape[:-1] + (40,)
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol)
+    np.testing.assert_allclose(got.numpy(), tg._data_curve_gather(
+        *args).numpy(), rtol=rtol)
+
+
+def test_data_curve_mm_chunks_sum_to_one_chunk(grids, monkeypatch):
+    """A byte budget that forces many chunks, the last one short, gives
+    the one-chunk result."""
+    _, tg = grids
+    ns, ts, w = _mm_inputs("weights", np.random.default_rng(9))
+    args = (torch.tensor(ns), torch.tensor(ts), torch.tensor(w))
+    whole = tg._data_curve_mm(*args)
+    C, G, M = ts.shape[0], tg.g_max, tg.m_max
+    assert tag.MM_BUDGET // (8 * M * max(C, G)) >= ns.shape[0]
+    monkeypatch.setattr(tag, "MM_BUDGET", 8 * M * max(C, G) * 5)
+    assert ns.shape[0] % 5
+    chunked = tg._data_curve_mm(*args)
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-12)
+    with pytest.raises(ValueError, match="counts the chains share"):
+        tg._data_curve_mm(torch.tensor(ts), torch.tensor(ts))
+
+
+def test_data_curve_sparse_takes_the_gather_route(grids, monkeypatch):
+    """data_curve_sparse sums _data_curve_gather over its chunks, as the
+    JAX function's scan does, and never goes through data_curve."""
+    jg, tg = grids
+    rng = np.random.default_rng(10)
+    ns = rng.integers(0, 150, 50)
+    ts = np.minimum(rng.integers(1, 60, (3, 50)), np.maximum(ns, 1)[None])
+    calls = []
+    gather = tag.AGridTable._data_curve_gather
+
+    def spy(self, ns, ts, weights=None):
+        calls.append(ns.shape[-1])
+        return gather(self, ns, ts, weights)
+
+    def refuse(self, *args, **kw):
+        raise AssertionError("data_curve_sparse called data_curve")
+
+    monkeypatch.setattr(tag.AGridTable, "_data_curve_gather", spy)
+    monkeypatch.setattr(tag.AGridTable, "data_curve", refuse)
+    got = tg.data_curve_sparse(torch.tensor(ns), torch.tensor(ts), chunk=16)
+    assert calls == [16, 16, 16, 2]
+    want = np.asarray(jg.data_curve_sparse(jnp.asarray(ns), jnp.asarray(ts),
+                                           chunk=16))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+
+
 def test_curve_at_matches_jax(grids):
     jg, tg = grids
     rng = np.random.default_rng(4)
@@ -231,7 +311,7 @@ def test_ensure_grid_matches_jax():
         jag.ensure_grid(jg, 10_000, 10, quit_on_bound=True)
 
 
-def test_mesh_not_ported():
+def test_mesh_fill_equals_plain_fill():
     """The sharded fill is ported (tests/test_torch_parallel.py runs it
     under 2 and 4 processes): on a world of one process a mesh gives the
     plain grid bitwise, and a grid that does not divide by the processes
