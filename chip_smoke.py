@@ -20,8 +20,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      12288) in f32 against the f64 plain fill, and at 8193 columns (a last
      tile of one column);
   3. the main path: make_grid(512, 128, g=64) + run_gibbs with 1024
-     chains x 250 iterations (the Quick-start's 500 cut in half, PERF.md
-     section 4) on crp_generate(0, 4, 20, 100) data, with
+     chains x 125 iterations (the Quick-start's 500 cut to a quarter,
+     PERF.md section 4) on crp_generate(0, 4, 20, 100) data, with
      the kernel's launch count over that run;
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
@@ -41,7 +41,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      1024), K3's at (2^20, 1024), each as a share of its bound and per
      column, and at 2^20 as a share of the copy roofline;
   7. the single-table path: make(1000, 200, 10^6, 10^4, 0.5) (K3, n >=
-     4 m) and make(1000, 300, ...) (K2), ensure to 81920 x 256 (K3),
+     4 m) and make(1000, 300, ...) (K2), ensure to 81920 x 256 (K3, the
+     anchored S1),
      remake, cli/list_torch.py, and an S-only make(65535, 1024,
      build_v=False), which must take K3,
      held to plain-f64 tables built on the card, with each kernel's launch
@@ -85,10 +86,10 @@ Phases, each timed; any failure raises and the exit code is non-zero:
  13. traces and checkpoint/resume at the gate's configuration, seed 7, on
      a K1 grid: (a) run_gibbs(collect_traces=True), 1000 iterations:
      traces (iters, 64), a_rhat and b_rhat below 1.1, 0 < ESS <= the kept
-     draws x 1.5, the moments inside phase 4's bands; (b) 100 iterations,
+     draws x 1.5, the moments inside phase 4's bands; (b) 50 iterations,
      checkpoint.save of the state and the CUDA generator, load onto the
-     card, 100 more through the driver's chunk runner: t, T, a, b equal to
-     one straight 200-iteration run bitwise;
+     card, 50 more through driver._run_chunk: t, T, a, b equal to
+     one straight 100-iteration run bitwise;
  14. the HPYP model: (a) run_hpyp (f32, K1 grid, 256 chains, 1000
      iterations, hyper cycle 2) on the Quick-start data against the JAX
      package's CPU-f64 moments in tests/data/torch_hpyp_ref.json (E[T1_j],
@@ -123,7 +124,11 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      all-reduce, an all-gather and make_grid(mesh=...) bitwise equal to
      the unsharded fill; (e) torchrun --nproc_per_node 2
      cli/ngg_torch.py --chains 100000: worst equal to 15b's, mean within
-     rtol 1e-12;
+     rtol 1e-12; (f) tools/scaling_bench_torch.py, each run a process of
+     the tool that starts its own ranks: the Gibbs step + cross-chain
+     moments at 2 and 4 gloo ranks, the NGG workload (--ngg) at 2, 10
+     steps each; one-card figures, every figure and moment finite, NGG's
+     worst < 0.2, K1 launched in every rank;
  17. the long-double oracle: native.fill_ref(0.5, 8192, 1024) against K1
      (G = 1), K2, K3 and the plain fill in f32 and f64 (max |d log S|,
      |dSrel|, V relative error; each kernel within 1.5 x its plain
@@ -131,9 +136,12 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      native crp_generate against the Python one at check.c's MAXDATA;
  18. the ported on-device tools at their own sizes, earlier phases' memory
      freed first: (a) tools/extra_bench_torch.py's make at (2^20, 1024)
-     through K3, its wall time and apart its fill, host S1 and copy, the
-     table equal bitwise to a direct K3 fill and its S1 pair to
-     _split_hi_lo(s1_host); (b) its ensure(2^19 -> 2^20): time, peak
+     through K3 and the anchored S1 (stirling.s1_route), its wall time and
+     apart its fill, the S1's host anchors, their copy and its fill on the
+     card beside the host route's S1 and copy, the table equal bitwise to
+     a direct K3 fill and its S1 pair to s1_anchored, hi + lo within 5e-4
+     of s1_host at every row (the JAX package's budget) at a = 0, 0.05,
+     0.5, 0.9; (b) its ensure(2^19 -> 2^20): time, peak
      allocated memory beside the old and new tables' bytes, the grown table
      bitwise equal to a fresh make; (c) its sparse sample_a over 2^20 + 17
      pairs (C = 4, a make_grid(96, 32, g=16) grid through K1, 8 moves):
@@ -147,7 +155,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
-over the paths of phases 3, 7, 9, 10, 11, 12, 13, 14, 16a-d (over each
+over the paths of phases 3, 7, 9, 10, 11, 12, 13, 14, 16a-d, 16f (over each
 path's ranks, which report theirs in a RANK json line), 17 and 18, each driven
 with the counts set to 0 just before it; "launches_by_path" splits them),
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -180,7 +188,7 @@ ARS_SEED, ARS_ITERS = "7", 1000
 CONFIG_SHAPE = (64, 512, 2000, 41)
 SPECIAL_POINTS = 10 ** 6
 BENCH_SHAPE = (64, 1 << 14, 1024)      # bench.py:77, the headline grid fill
-MAIN_ITERS = 250               # phase 3: the Quick-start's 500, cut in half
+MAIN_ITERS = 125               # phase 3: the Quick-start's 500, cut to 1/4
 # The least time for a fill: its tables written once (2 cells' bytes a
 # cell) at the H100 SXM's 3.35 TB/s, or its f64 work at 34 TFLOP/s (f64
 # outside the tensor cores; NVIDIA's data sheet), whichever is larger.  A
@@ -1334,7 +1342,7 @@ def phase12_checkc(dev, sc, stirling, pyp, card):
 
 # phase 13: the gate's configuration at half its depth with traces (as phase
 # 9 runs ARS), then RESUME_K iterations, a checkpoint, RESUME_K more
-TRACE_SEED, TRACE_ITERS, RESUME_K = "7", 1000, 100
+TRACE_SEED, TRACE_ITERS, RESUME_K = "7", 1000, 50
 # phase 14b: check.c's MAXDATA through run_hpyp (32 chains, 100 iterations,
 # hyper moves every 5); the start grid's hard bounds let ensure_grid grow it
 HPYP_CHECKC_CHAINS, HPYP_CHECKC_CFG = 32, dict(iters=100, hyper_cycle=5)
@@ -1973,8 +1981,67 @@ def rank_main(argv):
     dist.destroy_process_group()
 
 
+# 16f: the tool's sizes, 10 timed steps (its 30 cut: on an H100 a run took
+# ~35 s at 30 steps, most of it process start-up, against a 90 s phase)
+SCALING_RUNS = tuple(argv + ["--iters", "10"] for argv in (
+    ["--devices", "2"], ["--devices", "4"], ["--devices", "2", "--ngg"]))
+
+
+def phase16f_scaling(card):
+    """tools/scaling_bench_torch.py's SCALING_RUNS, each a process of the
+    tool that starts its own ranks on cuda:0; every figure finite, the
+    moments finite, NGG's worst < 0.2, K1 launched in r1 and in every
+    rank.  Returns the kernels' launches summed over the runs."""
+    launches = {}
+    for argv in SCALING_RUNS:
+        t_run = time.perf_counter()
+        proc = _start([sys.executable, os.path.join(ROOT, "tools",
+                                                    "scaling_bench_torch.py"),
+                       *argv])
+        text = _wait([proc], 240, "16f " + " ".join(argv))[0]
+        run_s = time.perf_counter() - t_run
+        res = json.loads([ln for ln in text.splitlines()
+                          if ln.startswith("{")][-1])
+        n = int(argv[argv.index("--devices") + 1])
+        r1, rn = res["r1"], res["rn"]
+        check(res["shared_card"] and res["backend"] == "gloo"
+              and rn["devices"] == n and rn["chains"] == n * r1["chains"],
+              f"16f {argv}: {res}")
+        figs = [r[k] for r in (r1, rn) for k in (
+            "sec_per_step", "chain_steps_per_s",
+            "per_device_chain_steps_per_s")]
+        check(all(np.isfinite(x) and x > 0 for x in figs)
+              and np.isfinite(res["weak_scaling_efficiency"]),
+              f"16f {argv}: figures {figs}")
+        if "--ngg" in argv:
+            check(r1["worst"] < 0.2 and rn["worst"] < 0.2,
+                  f"16f {argv}: worst {r1['worst']}, {rn['worst']} (< 0.2)")
+            extra = f"worst {r1['worst']:.4g} / {rn['worst']:.4g}"
+        else:
+            check(np.isfinite(r1["stats"]).all()
+                  and np.isfinite(rn["stats"]).all(),
+                  f"16f {argv}: moments {r1['stats']}, {rn['stats']}")
+            check(r1["launches"]["fill_grid"] >= 1
+                  and rn["launches"]["fill_grid"] >= n,
+                  f"16f {argv}: K1 not launched in every rank")
+            for r in (r1, rn):
+                for k, c in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + c
+            extra = (f"[a_mean, a_var, b_mean, b_var] {r1['stats']} / "
+                     f"{rn['stats']}")
+        print(f"   {' '.join(argv)}: 1 process {r1['chains']} chains "
+              f"{1e3 * r1['sec_per_step']:.3f} ms a step, "
+              f"{r1['chain_steps_per_s']:.4g} chain-steps/s; {n} ranks on "
+              f"one card {rn['chains']} chains {1e3 * rn['sec_per_step']:.3f}"
+              f" ms a step, {rn['chain_steps_per_s']:.4g} chain-steps/s "
+              f"({rn['per_device_chain_steps_per_s']:.4g} a rank), ratio "
+              f"{res['weak_scaling_efficiency']} (one card shared, not weak "
+              f"scaling); {extra}; the run {run_s:.1f} s (host) [{card}]")
+    return launches
+
+
 def phase16_multidevice(dev, card, ngg_one):
-    """Phases 16a-e; returns {path: K1 launches summed over its ranks}."""
+    """Phases 16a-f; returns {path: K1 launches summed over its ranks}."""
     paths = {}
     out = tempfile.mkdtemp(prefix="chip_smoke16_")
     try:
@@ -2071,6 +2138,12 @@ def phase16_multidevice(dev, card, ngg_one):
               f"{res['worst']!r} == 15b's, mean {res['mean']!r} vs "
               f"{ngg_one['mean']!r} [{card}]")
         done(t0)
+
+        t0 = phase("16f tools/scaling_bench_torch.py on cuda:0: the Gibbs "
+                   "step + cross-chain moments at 2 and 4 gloo ranks, the "
+                   "NGG workload at 2 (one card shared: not weak scaling)")
+        paths["16f"] = phase16f_scaling(card)
+        done(t0, f"launches {paths['16f']}")
     finally:
         _stop_all()
         shutil.rmtree(out, ignore_errors=True)
@@ -2164,6 +2237,8 @@ def phase17_oracle(dev, sc, stirling, pyp, card):
     return launches
 
 
+S1_DISCOUNTS = (0.0, 0.05, 0.5, 0.9)      # 18a: tests/test_stirling.py's
+S1_ABS = 5e-4                             # ... and its budget
 SPARSE_P, SPARSE_C = (1 << 20) + 17, 4    # 18c: extra_bench.py's shape
 CURVE_CHAINS = (1024, 16384)              # 18d: the Quick-start's and 16x
 LGCACHE_REPS = 4                          # 18e: the tool's 32 cut to 4
@@ -2182,23 +2257,43 @@ def phase18_tools(dev, sc, agrid, stirling, pyp, card):
     torch.cuda.empty_cache()
     reset_launches(sc)
     N, M = 1 << 20, 1024
-    t0 = phase(f"18a production make({N}, {M}) through K3: wall, fill, host "
-               "S1, copy")
+    t0 = phase(f"18a production make({N}, {M}) through K3 and the anchored "
+               "S1: wall, fill, anchors, their copy, the S1 fill")
     mk = eb.bench_make(dev, card, n=N, m=M)
     check(mk["route"] == "fill_table_cols", f"make({N}, {M}) routed to "
           f"{mk['route']}, not K3")
+    check(mk["s1_route"] == "anchored"
+          and stirling.s1_route(dev, torch.float32, N) == "anchored",
+          f"make({N}, {M}) took the {mk['s1_route']} S1, not the anchored")
     tab = stirling.make(N, M, 2 * N, 2 * M, 0.5, use_asympt=True, device=dev)
     v, s = sc.fill_table_cols(torch.tensor(0.5, device=dev), N, M)
     check(tab.cols and torch.equal(tab.vtab, v) and torch.equal(tab.srel, s),
           "18a: make's tables differ from a direct K3 fill")
-    hi, lo = stirling._split_hi_lo(stirling.s1_host(0.5, N))
-    check(np.array_equal(tab.s1_hi.cpu().numpy(), hi)
-          and np.array_equal(tab.s1_lo.cpu().numpy(), lo),
-          "18a: make's S1 pair differs from _split_hi_lo(s1_host)")
+    hi, lo = stirling.s1_anchored(0.5, N, device=dev)
+    check(torch.equal(tab.s1_hi, hi) and torch.equal(tab.s1_lo, lo),
+          "18a: make's S1 pair differs from s1_anchored")
     del tab, v, s
-    print(f"   host S1 + copy = "
-          f"{mk['s1_host_ms'] + mk['split_ms'] + mk['h2d_ms']:.4f} ms beside "
-          f"the {mk['fill_ms']:.4f} ms fill [{card}]")
+    # the JAX package's budget for the anchored pair
+    # (tests/test_stirling.py:257-270), at every row and four discounts
+    errs = {}
+    for a in S1_DISCOUNTS:
+        hi, lo = stirling.s1_anchored(a, N, device=dev)
+        got = hi.double() + lo.double()
+        want = torch.as_tensor(stirling.s1_host(a, N), device=dev)
+        errs[a] = (got - want).abs().max().item()
+        check(errs[a] < S1_ABS and got[0].item() == 0.0,
+              f"18a: anchored S1 at a={a} off by {errs[a]:.3g} (< "
+              f"{S1_ABS}), S1(1) = {got[0].item()}")
+    print(f"   anchored S1 vs s1_host, max |diff| at {N} rows: "
+          + ", ".join(f"a={a} {e:.4g}" for a, e in errs.items())
+          + f" (< {S1_ABS})")
+    anchored = mk["anchors_ms"] + mk["anchor_h2d_ms"] + mk["s1_fill_ms"]
+    print(f"   wall {mk['wall_ms']:.4f} ms: K3 fill {mk['fill_ms']:.4f} ms; "
+          f"anchored S1 {anchored:.4f} ms (host anchors "
+          f"{mk['anchors_ms']:.4f}, copy {mk['anchor_h2d_ms']:.4f}, fill on "
+          f"the card {mk['s1_fill_ms']:.4f}); the host route's S1 + copy "
+          f"would be {mk['s1_host_ms'] + mk['split_ms'] + mk['h2d_ms']:.4f} "
+          f"ms [{card}]")
     done(t0)
 
     t0 = phase(f"18b ensure({N // 2} -> {N}): time and peak memory")
@@ -2452,6 +2547,7 @@ def main():
                         ("16b", ["fill_grid"]),
                         ("16c", ["fill_grid"]),
                         ("16d", ["fill_grid"]),
+                        ("16f", ["fill_grid"]),
                         ("17", ["fill_grid", "fill_table",
                                 "fill_table_cols"]),
                         ("18", ["fill_grid", "fill_table_cols"])):

@@ -32,4 +32,25 @@ as the reference that tests/test_torch_*.py hold every ported function to.  This
   utils             config, yaps logging (jax-free copies), checkpoint,
                     metrics
 """
+from __future__ import annotations
+
+import importlib
+
 __version__ = "0.1.0"
+
+# lazy submodule access keeps `import libstb_tpu_torch` light: nothing
+# below is imported, and no kernel is built, until it is first touched
+_SUBMODULES = (
+    "core", "models", "samplers", "parallel", "native", "utils", "ops",
+    "convert", "entry",
+)
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_SUBMODULES))

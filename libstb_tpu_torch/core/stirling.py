@@ -5,7 +5,10 @@ design):
 
 * ``s1_host`` / ``_split_hi_lo``: the host f64 S1 column and its f32 hi/lo
   split (numpy copies, held equal to the originals by
-  tests/test_torch_stirling.py); ``s1_ingraph`` for a tensor ``a``;
+  tests/test_torch_stirling.py); ``s1_anchored``: the pair from f64 host
+  anchors every 32 rows and f32 log prefix sums on the device, which
+  ``make`` takes for long f32 tables on a card (``s1_route``);
+  ``s1_ingraph`` for a tensor ``a``;
 * ``fill_rows``: the V-ratio recurrence walked over n, with Srel as the
   per-row prefix sum of log V, and its resume form -- the plain version of
   the CUDA fills (ops/stirling_cuda.py) and their oracle;
@@ -30,8 +33,9 @@ import torch
 from ..parallel.distributed import local_device
 from ..utils import yaps
 
-__all__ = ["StirlingTable", "make", "remake", "ensure", "fill_route",
-           "fill_rows", "s1_host", "s1_ingraph", "s_asympt", "v_asympt"]
+__all__ = ["StirlingTable", "make", "s1_anchored", "remake", "ensure",
+           "fill_route", "s1_route", "fill_rows", "s1_host", "s1_ingraph",
+           "s_asympt", "v_asympt"]
 
 
 def s1_host(a: float, n_max: int) -> np.ndarray:
@@ -58,6 +62,61 @@ def _split_hi_lo(x64: np.ndarray):
     hi = x64.astype(np.float32)
     lo = (x64 - hi.astype(np.float64)).astype(np.float32)
     return hi, lo
+
+
+_S1_CHUNK = 32
+
+
+def _s1_device_fill(anchor_hi, anchor_lo, a, n_max: int):
+    """Anchored S1 hi/lo pair on the anchors' device (see s1_anchored)."""
+    B = _S1_CHUNK
+    nc = n_max // B
+    dt = torch.float32
+    # terms t_i = log(i - a) for i >= 1 (the increment S1[i] - S1[i-1]);
+    # within chunk c the prefix P_i = sum_{k=cB+1..i} t_k restarts at 0
+    idx = torch.arange(n_max, dtype=dt,
+                       device=anchor_hi.device).reshape(nc, B)
+    term = torch.where(idx >= 1.0,
+                       torch.log(torch.abs(idx - a) + (idx < 1.0).to(dt)),
+                       0.0)
+    # chunk position 0 is the anchor row itself (P = 0); positions
+    # 1..B-1 accumulate terms
+    term[:, 0] = 0.0
+    pref = torch.cumsum(term, dim=1)
+    s1_hi = anchor_hi[:, None].expand(nc, B).reshape(-1)
+    s1_lo = (anchor_lo[:, None] + pref).reshape(-1)
+    return s1_hi, s1_lo
+
+
+def _s1_anchors(a: float, n_max: int):
+    """The f64 host anchors of s1_anchored, S1 at rows 1, 1 + B, ...,
+    split into f32 (hi, lo)."""
+    from scipy.special import gammaln
+
+    assert n_max % _S1_CHUNK == 0
+    rows = np.arange(0, n_max, _S1_CHUNK, dtype=np.float64) + 1.0
+    return _split_hi_lo(gammaln(rows - a) - gammaln(1.0 - a))
+
+
+def s1_anchored(a: float, n_max: int, *, device):
+    """S1 hi/lo computed on ``device`` from f64 host anchors, the JAX
+    package's route for long f32 tables on its accelerator: the host
+    evaluates one anchor per ``_S1_CHUNK`` rows (2^15 gammaln calls at
+    2^20 rows, not 2^20) and the device fills the within-chunk log prefix
+    sums:
+
+        S1[i] = A_c + sum_{k=cB+1..i} log(k - a),   c = i // B,
+
+    stored as (hi, lo) = (f32(A_c), f32(A_c - hi) + P_i), all in f32.
+    |S1_device - S1_host| <= ~5e-4 absolute at any n (32 f32 log terms of
+    <~1.5e-6 each, and eps * |P| per add).  Requires n_max % _S1_CHUNK ==
+    0."""
+    hi, lo = _s1_anchors(a, n_max)
+    device = torch.device(device)
+    return _s1_device_fill(torch.as_tensor(hi, device=device),
+                           torch.as_tensor(lo, device=device),
+                           torch.tensor(a, dtype=torch.float32,
+                                        device=device), n_max)
 
 
 def _v_first_row(m_max: int, dtype, device, batch=()) -> torch.Tensor:
@@ -421,6 +480,24 @@ def fill_route(device, n: int, m: int, build_v: bool = True) -> str:
     return "fill_table"
 
 
+# Long f32 tables on a CUDA device take the anchored S1 (s1_anchored) from
+# this many rows, as the JAX package's make does on its accelerator.
+S1_ANCHORED_MIN_N = 1 << 16
+
+
+def s1_route(device, dtype, n: int) -> str:
+    """Which S1 pair ``make`` builds for an n-row table of ``dtype`` on
+    ``device``: "anchored" (s1_anchored: f64 anchors every _S1_CHUNK rows,
+    the rest filled on the card) on a CUDA device for f32 tables with n %
+    _S1_CHUNK == 0 and n >= S1_ANCHORED_MIN_N, the JAX package's condition
+    with the card standing for its kernels; "host" (the f64 s1_host
+    column, split into hi/lo for f32) everywhere else."""
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and n % _S1_CHUNK == 0 and n >= S1_ANCHORED_MIN_N):
+        return "anchored"
+    return "host"
+
+
 def _norm_dims(init_n, init_m, max_n, max_m):
     """Dimension clamping identical to S_make (stable.c:118-129)."""
     max_m = max(max_m, 10)
@@ -448,12 +525,14 @@ def make(init_n: int, init_m: int, max_n: int, max_m: int, a: float,
          build_s: bool = True, build_v: bool = True,
          use_asympt: bool = False, dtype=torch.float32, *, device,
          tag: str = "") -> StirlingTable:
-    """Build a table on ``device`` (S_make, stable.c:110-312).  ``a`` is a
-    host float, so S1 is the host f64 column.
+    """Build a table on ``device`` (S_make, stable.c:110-312).
 
     The fill follows ``fill_route``: K3 (column-major table) or K2 on a
     CUDA device, where a kernel that cannot build or launch raises;
-    fill_rows on the CPU."""
+    fill_rows on the CPU.  S1 follows ``s1_route``: the anchored pair
+    (s1_anchored) for long f32 tables on a card, else the host f64
+    column.  Either is computed after the fill is launched, so the host
+    work runs under the kernel."""
     from ..ops import stirling_cuda
 
     init_n, init_m, max_n, max_m = _norm_dims(init_n, init_m, max_n, max_m)
@@ -472,7 +551,10 @@ def make(init_n: int, init_m: int, max_n: int, max_m: int, a: float,
     else:
         vtab, srel = stirling_cuda.fill_table(a_t, init_n, init_m,
                                               with_srel=build_s)
-    s1_hi, s1_lo = _s1_pair(a, init_n, dtype, device)
+    if s1_route(device, dtype, init_n) == "anchored":
+        s1_hi, s1_lo = s1_anchored(a, init_n, device=device)
+    else:
+        s1_hi, s1_lo = _s1_pair(a, init_n, dtype, device)
     return StirlingTable(
         a=a_t, lga1=torch.tensor(float(gammaln(1.0 - a)), dtype=dtype,
                                  device=device),

@@ -424,3 +424,26 @@ def test_check_cli_runs(argv):
         assert len(re.findall(r"iters in \d+ms\]", text)) == len(names)
     if "-A" in argv:
         assert "ARS neval/call" in text and "p: iter" in text
+
+
+def test_rhat_check_tool_runs_both_packages():
+    """tools/torch_rhat_check.py (the R-hat / ESS of a and b of both
+    packages at the gate's configuration) at a tiny size: one row a package,
+    each diagnostic finite, R-hat >= ~1 and 0 < ESS <= 1.5 x the kept
+    draws, E[a] inside (0, 1)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    try:
+        import torch_rhat_check
+    finally:
+        sys.path.pop(0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = torch_rhat_check.main(["--seeds", "7", "--iters", "60",
+                                      "--chains", "4"])
+    assert [r["package"] for r in rows] == ["jax", "port"]
+    for r in rows:
+        assert r["seed"] == 7 and r["iters"] == 60 and r["chains"] == 4
+        for x in ("a", "b"):
+            assert np.isfinite(r[f"{x}_rhat"]) and r[f"{x}_rhat"] > 0.9
+            assert 0 < r[f"{x}_ess"] <= 1.5 * 30 * 4
+        assert 0 < r["a_mean"] < 1

@@ -57,6 +57,37 @@ def test_every_module_imports_without_jax():
     assert "imported" in res.stdout
 
 
+def test_lazy_submodule_access():
+    """As libstb_tpu/__init__.py: `import libstb_tpu_torch` imports no
+    submodule (no kernel module, nothing that touches CUDA), and each of
+    the JAX package's submodules, the port's own convert and entry, and
+    their members resolve on first touch; an unknown name raises
+    AttributeError."""
+    from libstb_tpu import _SUBMODULES as jax_submodules
+
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['libstb_tpu'] = None\n"
+            "import libstb_tpu_torch as p\n"
+            "assert not [m for m in sys.modules\n"
+            "            if m.startswith('libstb_tpu_torch.')], 'eager'\n"
+            "print(sorted(dir(p)))\n"
+            "assert callable(p.core.stirling.s1_anchored)\n"
+            "assert p.entry.__name__ == 'libstb_tpu_torch.entry'\n"
+            "assert p.ops.__name__ == 'libstb_tpu_torch.ops'\n"
+            "try:\n"
+            "    p.no_such_module\n"
+            "except AttributeError as e:\n"
+            "    print('AttributeError', e)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names, err = res.stdout.splitlines()
+    want = set(jax_submodules) | {"convert", "entry"}
+    assert want <= set(ast.literal_eval(names))
+    assert "has no attribute 'no_such_module'" in err
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", *sorted((ROOT / "cli").glob("*_torch.py")),
     *sorted((ROOT / "tools").glob("*_torch.py"))],

@@ -115,3 +115,44 @@ def test_v_asympt_matches_jax(a_sign):
     got = tst.v_asympt(torch.tensor(a), torch.tensor(n), torch.tensor(m),
                        a_sign=a_sign).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-11)
+
+
+@pytest.mark.parametrize("a", [0.0, 0.05, 0.5, 0.9])
+def test_s1_anchored_matches_jax(a):
+    """The anchored S1 pair (f64 host anchors every 32 rows, f32 log
+    prefix sums) at 2^17 rows, the JAX test's cases
+    (tests/test_stirling.py:257-270): hi bitwise equal to JAX's (the same
+    f64 anchors), lo within 2e-4 absolute (torch's cumsum may associate
+    differently from XLA's: a few ulps of |prefix| <= ~430), hi + lo
+    within JAX's 5e-4 of s1_host, and S1(1) == 0 exactly."""
+    n = 1 << 17
+    jhi, jlo = (np.asarray(x) for x in jst.s1_anchored(a, n))
+    hi, lo = (x.numpy() for x in tst.s1_anchored(a, n, device="cpu"))
+    assert hi.dtype == lo.dtype == np.float32 and hi.shape == (n,)
+    np.testing.assert_array_equal(hi, jhi)
+    np.testing.assert_allclose(lo, jlo, rtol=0, atol=2e-4)
+    got = hi.astype(np.float64) + lo.astype(np.float64)
+    assert np.max(np.abs(got - tst.s1_host(a, n))) < 5e-4
+    assert got[0] == 0.0
+
+
+def test_s1_anchored_needs_whole_chunks():
+    with pytest.raises(AssertionError):
+        tst.s1_anchored(0.5, (1 << 16) + 1, device="cpu")
+
+
+@pytest.mark.parametrize("device,dtype,n,route", [
+    ("cuda", torch.float32, 1 << 16, "anchored"),
+    ("cuda", torch.float32, 1 << 20, "anchored"),
+    ("cuda:0", torch.float32, 81920, "anchored"),
+    ("cuda", torch.float32, (1 << 16) + 1, "host"),
+    ("cuda", torch.float32, 1 << 15, "host"),
+    ("cuda", torch.float64, 1 << 20, "host"),
+    ("cpu", torch.float32, 1 << 16, "host"),
+    ("cpu", torch.float32, 1 << 20, "host"),
+    ("cpu", torch.float64, 1 << 20, "host")])
+def test_s1_route(device, dtype, n, route):
+    """make's S1 route is JAX's (libstb_tpu/core/stirling.py:627-628), the
+    CUDA device standing for its kernels: anchored for f32 tables of n %
+    32 == 0 and n >= 2^16 on a card, the host column everywhere else."""
+    assert tst.s1_route(torch.device(device), dtype, n) == route

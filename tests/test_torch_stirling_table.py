@@ -405,6 +405,18 @@ def test_fill_route_ignores_build_v(n, m, route):
     assert tst.fill_route("cpu", n, m, build_v=False) == "fill_rows"
 
 
+def test_cpu_make_keeps_the_host_s1():
+    """On the CPU make's S1 pair stays the host column split in two, also
+    at a length where a card would take the anchored route."""
+    n = 1 << 16
+    assert tst.s1_route(CPU, torch.float32, n) == "host"
+    assert tst.s1_route("cuda", torch.float32, n) == "anchored"
+    t = tst.make(n, 10, 2 * n, 20, 0.5, build_s=False, device=CPU)
+    hi, lo = tst._split_hi_lo(tst.s1_host(0.5, n))
+    np.testing.assert_array_equal(t.s1_hi.numpy(), hi)
+    np.testing.assert_array_equal(t.s1_lo.numpy(), lo)
+
+
 def test_list_torch_runs_on_cpu():
     """cli/list_torch.py at small N on the CPU prints what the port's
     table holds, and the grown S value agrees with the JAX table (f32,

@@ -23,7 +23,9 @@ torch.set_num_threads(1)
 
 SMALL = {
     "make": (eb.bench_make, dict(n=256, m=32), r"^make\(256,32\) production "
-             r"wall: .* fill_rows fill .* s1_host .* S1 pair copy "),
+             r"wall: .* S1 route host\); apart: fill_rows fill .* host "
+             r"anchors .* anchor copy \(64 B, pageable\) .* pair fill on "
+             r"cpu .* s1_host .* S1 pair copy "),
     "ensure": (eb.bench_ensure, dict(n=256, m=32), r"^ensure\(128 -> 256, "
                r"m=32\): .* bitwise equal to the fresh make: True "),
     "xfer": (eb.bench_xfer, dict(n=1024), r"^S1 hi/lo pair \(8192 B\) to "
@@ -55,9 +57,10 @@ def test_extra_bench_workload_runs_on_cpu(workload, capsys):
     assert re.search(line, text, re.M), text
     assert text.rstrip().endswith("[cpu, host clock]")
     if workload == "make":
-        assert out["route"] == "fill_rows"
+        assert out["route"] == "fill_rows" and out["s1_route"] == "host"
         assert min(out[k] for k in ("wall_ms", "fill_ms", "s1_host_ms",
-                                    "h2d_ms")) > 0
+                                    "h2d_ms", "anchors_ms", "anchor_h2d_ms",
+                                    "s1_fill_ms")) > 0
     elif workload == "ensure":
         assert out["equal_fresh"] and out["peak"] is None
         assert out["new"] == 2 * out["old"]

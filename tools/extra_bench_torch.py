@@ -5,8 +5,10 @@ workloads at its shapes (each function's keyword defaults; the tests call
 them small).
 
   make      production stirling.make at (2^20, 1024): the wall time, and
-            apart the fill (K3, CUDA events), the host f64 S1 (s1_host and
-            its hi/lo split) and the S1 pair's copy to the card
+            apart the parts of the route it takes: the fill (K3, CUDA
+            events) and, on a card, the anchored S1 (the f64 host anchors,
+            their copy, the fill of the pair on the card); beside them the
+            host route's S1 (s1_host, its hi/lo split, the pair's copy)
   ensure    ensure(2^19 -> 2^20), a refill through make: the wall time and
             the peak of allocated device memory beside the old and new
             tables' bytes; against a fresh make at 2^20, which it must
@@ -96,8 +98,11 @@ def _make(n, m, a, device):
 def bench_make(device, card, n=1 << 20, m=1024, discounts=(0.45, 0.5, 0.55)):
     """make(n, m)'s wall time, the median over ``discounts`` after a warm
     make, and its parts apart at the middle discount: the fill by the
-    route make takes, s1_host and the hi/lo split on the host, and the
-    pair's host-to-device copy (pageable, as make copies it)."""
+    route make takes; the anchored S1's parts (n a multiple of 32): the
+    f64 host anchors, their host-to-device copy and the pair's fill on
+    ``device`` (device_timer); and the host route's: s1_host and the hi/lo
+    split on the host and the pair's copy (pageable, as make copies it).
+    ``s1_route`` says which of the two S1 routes make takes."""
     from libstb_tpu_torch.core import stirling
     from libstb_tpu_torch.ops import stirling_cuda
     from libstb_tpu_torch.utils import metrics
@@ -108,26 +113,46 @@ def bench_make(device, card, n=1 << 20, m=1024, discounts=(0.45, 0.5, 0.55)):
                   for a in discounts)[1]
     a = discounts[1]
     route = stirling.fill_route(device, n, m)
+    s1_route = stirling.s1_route(device, torch.float32, n)
     fill = (stirling_cuda.fill_table_cols if route == "fill_table_cols"
             else stirling_cuda.fill_table)
     a_t = torch.tensor(a, dtype=torch.float32, device=device)
     fill_s = metrics.device_timer(lambda a_t: fill(a_t, n, m), a_t)
+    out = dict(route=route, s1_route=s1_route, wall_ms=wall * 1e3,
+               fill_ms=fill_s * 1e3)
+    parts = f"{route} fill {fill_s * 1e3:.4f} ms"
+    if n % stirling._S1_CHUNK == 0:
+        anc_s = median_wall(lambda: stirling._s1_anchors(a, n), device)
+        ahi, alo = stirling._s1_anchors(a, n)
+        acopy_s = median_wall(lambda: (torch.as_tensor(ahi, device=device),
+                                       torch.as_tensor(alo, device=device)),
+                              device)
+        dev_anchors = [torch.as_tensor(x, device=device) for x in (ahi, alo)]
+        afill_s = metrics.device_timer(
+            lambda hi, lo, a_t: stirling._s1_device_fill(hi, lo, a_t, n),
+            *dev_anchors, a_t)
+        out.update(anchors_ms=anc_s * 1e3, anchor_h2d_ms=acopy_s * 1e3,
+                   s1_fill_ms=afill_s * 1e3)
+        parts += (f"; anchored S1: host anchors {anc_s * 1e3:.4f} ms, "
+                  f"anchor copy ({ahi.nbytes + alo.nbytes} B, pageable) "
+                  f"{acopy_s * 1e3:.4f} ms, pair fill on {device.type} "
+                  f"{afill_s * 1e3:.4f} ms")
     s1_s = median_wall(lambda: stirling.s1_host(a, n), device)
     s1 = stirling.s1_host(a, n)
     split_s = median_wall(lambda: stirling._split_hi_lo(s1), device)
     hi, lo = stirling._split_hi_lo(s1)
     h2d_s = median_wall(lambda: (torch.as_tensor(hi, device=device),
                                  torch.as_tensor(lo, device=device)), device)
+    out.update(s1_host_ms=s1_s * 1e3, split_ms=split_s * 1e3,
+               h2d_ms=h2d_s * 1e3)
     nbytes = n * m * 8
     print(f"make({n},{m}) production wall: {wall * 1e3:.4f} ms "
-          f"({nbytes / wall / 1e9:.1f} GB/s of V + Srel incl. host S1 + "
-          f"copy); apart: {route} fill {fill_s * 1e3:.4f} ms, s1_host "
+          f"({nbytes / wall / 1e9:.1f} GB/s of V + Srel incl. S1; S1 route "
+          f"{s1_route}); apart: {parts}; host route: s1_host "
           f"{s1_s * 1e3:.4f} ms + hi/lo split {split_s * 1e3:.4f} ms, "
           f"S1 pair copy ({hi.nbytes + lo.nbytes} B, pageable) "
           f"{h2d_s * 1e3:.4f} ms [{card}]", flush=True)
-    return dict(route=route, wall_ms=wall * 1e3, fill_ms=fill_s * 1e3,
-                s1_host_ms=s1_s * 1e3, split_ms=split_s * 1e3,
-                h2d_ms=h2d_s * 1e3)
+    return out
 
 
 def bench_ensure(device, card, n=1 << 20, m=1024):
