@@ -7,9 +7,10 @@ Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   1. build the hand-written kernels K1-K3 (csrc/*.cu, all three sharing
-     csrc/row_walk.cuh) with nvcc, one process per source, all at once,
-     and the native long-double oracle (native/stb_ref.cpp) with g++
-     beside them, before any rank of phase 16 starts;
+     csrc/row_walk.cuh) and the probes (csrc/vpu_probe.cu) with nvcc, one
+     process per source, all at once, and the native long-double oracle
+     (native/stb_ref.cpp) with g++ beside them, before any rank of phase
+     16 starts;
   2. K1 against its plain PyTorch version: (a) at (G=8, N=160, M=48) and
      at the row walk's tile edges (G = 1 and 64) in f32 and f64, (b) at
      the grid-fill benchmark shape (64 x 16384 x 1024, f32) on 8 of the
@@ -151,12 +152,31 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      at the Quick-start's sample_a shape (make_grid(512, 128, g=64), 80
      pairs) at 1024 and 16384 chains: each timed, within 1e-5 of max
      |curve| of each other; (e) tools/lgcache_bench_torch.py at batch 2^20,
-     4 reps.
+     4 reps;
+ 19. the probes of the card's floors (csrc/vpu_probe.cu, the port of
+     tools/vpu_probe.py): (a) each probe kernel against its plain version
+     at small shapes: the write floor bitwise in its three modes (a chunk
+     past the last whole one, chunks in two waves), every issue-rate op
+     (f32 within 1e-5 relative, the approximate reciprocal and logf 1e-4;
+     f64 1e-12: each orbit is contractive or of period 2, so a rounding
+     does not grow along it), the shared-memory modes and the overlap
+     variants bitwise; (b) tools/vpu_probe_torch.py's measurements at
+     their full size, each timed call's output held to its plain version
+     (the same tolerances) and the library's compiled steps counted
+     (cuobjdump -sass: each P2 / P4 kernel holds one mark a step of its
+     unrolled loop, vpu_probe_torch.SASS_MARKS: the FMA, multiply,
+     shuffle or hardware reciprocal of the step, or logf's exponent
+     conversion); a mismatch, a missing step, any byte rate over 105%
+     of 3.35 TB/s, op rate over 105% of the FMA rate of its type or overlap
+     fraction outside [-0.05, 1.05] fails the run; (c) K1-K3's time
+     against each floor: the data sheet's bound(), the measured write
+     floor, the measured issue floor and the two combined by the measured
+     overlap; the outputs freed at the end.
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
 over the paths of phases 3, 7, 9, 10, 11, 12, 13, 14, 16a-d, 16f (over each
-path's ranks, which report theirs in a RANK json line), 17 and 18, each driven
+path's ranks, which report theirs in a RANK json line), 17, 18 and 19, each driven
 with the counts set to 0 just before it; "launches_by_path" splits them),
 error and times; the last line is {"ok": true, "device": {...}}.
 
@@ -494,7 +514,8 @@ def phase6_k3(dev, sc, stirling, card, roof):
           f"[{card}]")
     done(t0)
     return {"max_abs_err": max_abs, "ms": k16, "plain_ms": p16,
-            "bound_ms": b16, "bound_by": b16_by, "library_ms": None}
+            "bound_ms": b16, "bound_by": b16_by, "library_ms": None,
+            "ms_2_20": k20}
 
 
 def plain_table(stirling, t, n, m, a, dev):
@@ -2364,6 +2385,202 @@ def phase18_tools(dev, sc, agrid, stirling, pyp, card):
     return launches
 
 
+# phase 19: the probes of the card's floors (csrc/vpu_probe.cu), each in
+# place of a pl.pallas_call site of tools/vpu_probe.py
+PROBE_REPLACES = {"write_floor": "tools/vpu_probe.py:93",
+                  "alu": "tools/vpu_probe.py:166",
+                  "smem": "tools/vpu_probe.py:232",
+                  "overlap": "tools/vpu_probe.py:375"}
+# 19a's (n, m): a last chunk cut short (40000 rows: 78 chunks of 512 and 64
+# rows), and chunks in two waves (2^21 rows: 228 chunks of 9216, 132 SMs)
+PROBE_SHAPES = ((40000, 9), (1 << 21, 4))
+PROBE_PIECES = (None, 1000)             # the TPU probe's sub-store, and short
+PROBE_ALU_R = 8                         # 19a: 64 steps a stream
+PROBE_SMEM = ((None, 3), (2048, 5))     # 19a: (chunk or K3's, steps)
+PROBE_ITERS = 16                        # 19a: a chain short of its fixed point
+# P3's floor: a warp's shared-memory access moves 32 x 8 bytes (scalar f64)
+# or 32 x 16 (two rows), through 32 banks of 4 bytes a cycle an SM
+SMEM_BYTES_A_CYCLE = 128
+
+
+def check_probes(dev, vp):
+    """19a: each probe kernel against its plain version on the card;
+    returns the largest absolute error of each probe and the relative
+    error of each issue-rate op."""
+    errs = dict.fromkeys(vp.PROBES, 0.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, m in PROBE_SHAPES:
+        for mode in vp.WRITE_MODES:
+            for piece in PROBE_PIECES if mode == "piecewise" else (None,):
+                piece = piece or vp.PIECE
+                got = vp.write_floor_cuda(m, n, mode, piece, device=dev)
+                want = vp.write_floor_ref(m, n, mode, piece, device=dev)
+                check(all(g is w is None or torch.equal(g, w)
+                          for g, w in zip(got, want)),
+                      f"19a: write_floor {mode} (piece {piece}) at "
+                      f"{(n, m)} differs from its plain version")
+        for alu, store in ((True, False), (False, True), (True, True)):
+            got = vp.overlap_cuda(m, n, PROBE_ITERS, alu, store, dev)
+            want = vp.overlap_ref(m, n, PROBE_ITERS if alu else 0, store,
+                                  sms, dev)
+            check(all(torch.equal(g, w) for g, w in zip(
+                got if store else [got], want if store else [want])),
+                  f"19a: overlap (alu {alu}, store {store}) at {(n, m)} "
+                  "differs from its plain version")
+    rel = {}
+    for dtype, ops in vp.ALU_OPS.items():
+        dt = "f32" if dtype == torch.float32 else "f64"
+        for op in ops:
+            for u in vp.ALU_U.get(op, (8,)):
+                got = vp.alu_cuda(op, dtype, u, PROBE_ALU_R, vp.ALU_UNROLL,
+                                  device=dev)
+                want = vp.alu_ref(op, dtype, u, PROBE_ALU_R, vp.ALU_UNROLL,
+                                  got.numel(), dev)
+                e = ((got - want).abs() / want.abs()).max().item()
+                tol = vp.alu_rtol(op, dtype)
+                rel[f"{dt}_{op}_u{u}"] = e
+                check(bool(torch.isfinite(got).all()) and e <= tol,
+                      f"19a: alu {dt} {op} u={u}: relative error {e:.3g} "
+                      f"(<= {tol})")
+                errs["alu"] = max(errs["alu"],
+                                  (got - want).abs().max().item())
+    for mode in vp.SMEM_MODES:
+        for pad in (True, False):
+            for chunk, steps in PROBE_SMEM:
+                got = vp.smem_cuda(mode, pad, chunk, steps, device=dev)
+                want = vp.smem_ref(mode, torch.float64,
+                                   chunk or vp.headline_chunk(sms), steps,
+                                   got.numel() // vp.ROW_THREADS, dev)
+                check(torch.equal(got, want),
+                      f"19a: smem {mode} pad {pad} chunk {chunk} differs "
+                      "from its plain version")
+    return errs, rel
+
+
+def phase19_probes(dev, vp, card, fills):
+    """The probes of the card's floors (tools/vpu_probe_torch.py) and K1-K3
+    against them (``fills``: each kernel's time from phases 2c, 5c, 6c).
+    Returns the probes' launches in the measuring run and their
+    kernels-line fields."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import vpu_probe_torch as tool
+
+    torch.cuda.empty_cache()
+    t0 = phase("19a the probes (csrc/vpu_probe.cu) vs their plain versions")
+    errs, rel = check_probes(dev, vp)
+    print("   write_floor, smem, overlap bitwise equal; alu relative errors: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in rel.items()))
+    done(t0)
+
+    t0 = phase("19b tools/vpu_probe_torch.py at full size")
+    for name in vp.LAUNCHES:
+        vp.LAUNCHES[name] = 0
+    res = tool.run(dev, card, tool.SIZES["cuda"])
+    launches = dict(vp.LAUNCHES)
+    bad = tool.impossible(res)
+    check(not bad, f"19b: readings that cannot stand: {bad}")
+    fl, alu, wr = res["floors"], res["alu"], res["write"]
+    print("   every timed output equal to its plain version (P1, P3, P4 "
+          "bitwise); alu relative errors at full size: "
+          + ", ".join(f"{k} {v['rel_err']:.3g}" for k, v in alu.items()))
+    print("   compiled steps (mark: count / the unrolled loop's steps): "
+          + ", ".join(f"{k} {v['mark']} {v['count']}/{v['need']}"
+                      for k, v in sorted(res["sass"]["kernels"].items())))
+    print(f"   K3's write floor (P1 piecewise): (2^20, 1024) "
+          f"{wr['piecewise']['ms']:.4f} ms = {wr['piecewise']['GBps']:.1f} "
+          f"GB/s, (2^16, 1024) {wr['piecewise_65536']['ms']:.4f} ms = "
+          f"{wr['piecewise_65536']['GBps']:.1f} GB/s; the card's (full) "
+          f"{wr['full']['GBps']:.1f} GB/s [{card}]")
+    print(f"   f64 ops/s: fma " + ", ".join(
+        f"u={u} {alu[f'f64_fma_u{u}']['ops_per_s']:.4g}" for u in (4, 8, 16))
+        + f"; div_pos {fl['f64_div_pos_per_s']:.4g}; log_pos "
+        f"{fl['f64_log_pos_per_s']:.4g}; SM clock under load "
+        f"{res['clocks_sm_under_load']['sm_mhz']} MHz of "
+        f"{res['clocks_sm_under_load']['max_sm_mhz']} [{card}]")
+    print(f"   K1's issue floor at 64 x 16384 x 1024: "
+          f"{fl['kernels']['K1']['issue_floor_ms']:.4f} ms; overlap "
+          f"fraction {fl['overlap_fraction']:.4f} (at "
+          f"{fl['overlap_iters']} FMA steps a column)")
+    print(f"   launches in phase 19b: {launches}")
+    done(t0)
+
+    t0 = phase("19c K1-K3 against the measured floors; the probes' plain "
+               "and library times")
+    for kern, ms in fills.items():
+        f = fl["kernels"][kern]
+        b_ms, b_by = bound(f["cells"], 4)
+        print(f"   {kern} {ms:.4f} ms: data-sheet bound {b_ms:.4f} ms "
+              f"({b_by}) {100 * b_ms / ms:.2f}%; measured write floor "
+              f"{f['write_floor_ms']:.4f} ms ({f['write_from']}) "
+              f"{100 * f['write_floor_ms'] / ms:.2f}%; measured issue floor "
+              f"{f['issue_floor_ms']:.4f} ms "
+              f"{100 * f['issue_floor_ms'] / ms:.2f}%; both at the measured "
+              f"overlap {f['floor_ms']:.4f} ms "
+              f"{100 * f['floor_ms'] / ms:.2f}% [{card}]")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, m = tool.K3_SHAPES[0]
+    none = "no PyTorch call computes a probe's orbit"
+    probes = {}
+    plain = cuda_ms(lambda: vp.write_floor_ref(m, n, "full", device=dev), 3)
+    v = torch.empty((m, n), device=dev)
+    s = torch.empty_like(v)
+    col = 1 + (torch.arange(m, device=dev) % 7).float()[:, None]
+    copy = (lambda: (v.copy_(col.expand(m, n)),
+                     s.copy_((col + 1).expand(m, n))))
+    copy()
+    probes["write_floor"] = {
+        "max_abs_err": errs["write_floor"], "ms": wr["full"]["ms"],
+        "plain_ms": plain, "bound_ms": 2 * 4 * m * n / HBM_BPS * 1e3,
+        "bound_by": "bytes", "library_ms": cuda_ms(copy, 5),
+        "library": "out.copy_(col.expand(m, n)) for V and for Srel"}
+    del v, s
+    row = alu["f64_fma_u8"]
+    plain = cuda_ms(lambda: vp.alu_ref(
+        "fma", torch.float64, 8, tool.SIZES["cuda"]["alu_r"], vp.ALU_UNROLL,
+        row["threads"], dev), 1)
+    probes["alu"] = {
+        "max_abs_err": errs["alu"], "ms": row["ms"], "plain_ms": plain,
+        "bound_ms": max(2 * row["ops"] / F64_FLOPS,
+                        8 * row["threads"] / HBM_BPS) * 1e3,
+        "bound_by": "operations", "library_ms": None, "library": none}
+    row = res["smem"]["load1_pad"]
+    threads = sms * vp.ROW_THREADS
+    plain = cuda_ms(lambda: vp.smem_ref("load1", torch.float64, row["chunk"],
+                                        row["steps"], sms, dev), 1)
+    # the shared memory's bytes (each row read once a step, 8 bytes, at
+    # SMEM_BYTES_A_CYCLE an SM at the card's top SM clock), or the f64
+    # multiply and add a row (two instructions, at half the FMA data
+    # sheet's 34 TFLOP/s each)
+    clock_hz = res["clocks_sm_under_load"]["max_sm_mhz"] * 1e6
+    rows_read = threads * row["steps"] * (row["chunk"] // vp.ROW_THREADS)
+    s_ms = 8 * rows_read / (SMEM_BYTES_A_CYCLE * sms * clock_hz) * 1e3
+    o_ms = 2 * rows_read / (F64_FLOPS / 2) * 1e3
+    probes["smem"] = {
+        "max_abs_err": errs["smem"], "ms": row["ms"], "plain_ms": plain,
+        "bound_ms": max(s_ms, o_ms),
+        "bound_by": "bytes" if s_ms >= o_ms else "operations",
+        "library_ms": None, "library": none}
+    iters = fl["overlap_iters"]
+    row = res["overlap"][str(iters)]
+    plain = cuda_ms(lambda: vp.overlap_ref(m, n, iters, device=dev), 1)
+    plan_blocks = vp.cols_plan(n, m, sms).blocks
+    flops = 2 * 4 * iters * vp.ROW_THREADS * plan_blocks * m
+    b_ms = 2 * 4 * m * n / HBM_BPS * 1e3
+    o_ms = flops / F64_FLOPS * 1e3
+    probes["overlap"] = {
+        "max_abs_err": errs["overlap"], "ms": row["both_ms"],
+        "plain_ms": plain, "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": None, "library": none}
+    for name, p in probes.items():
+        print(f"   {name}: {p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
+              f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}), library "
+              f"{p['library_ms']} [{card}]")
+    torch.cuda.empty_cache()
+    done(t0)
+    return launches, probes
+
+
 def main():
     t0 = phase("0 device")
     if not torch.cuda.is_available():
@@ -2385,16 +2602,20 @@ def main():
     done(t0)
     paths = {}                 # launches of each main path, by phase
 
-    t0 = phase("1 build K1, K2, K3 and the native oracle")
+    t0 = phase("1 build K1, K2, K3, the probes and the native oracle")
     from libstb_tpu_torch import native
+    from libstb_tpu_torch.ops import _nvcc
+    from libstb_tpu_torch.ops import vpu_probe_cuda as vp
+    sources = {**sc.SOURCES, **vp.SOURCES}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         gxx = pool.submit(native.build)      # g++ beside the nvcc processes
-        sc.build_all()
+        _nvcc.build_all(sources)
         for name in sc.KERNELS:
             sc.load(name)
+        vp.load()
         so = gxx.result()
     check(native.available(), "the native oracle did not load")
-    done(t0, f"({', '.join(p.name for p in sc.SOURCES.values())} -> sm_90a; "
+    done(t0, f"({', '.join(p.name for p in sources.values())} -> sm_90a; "
              f"{so.name} by g++)")
 
     t0 = phase("2a K1 vs plain at (8, 160, 48) and tile edges")
@@ -2534,6 +2755,9 @@ def main():
     paths.update(phase16_multidevice(dev, card, ngg_one))
     paths["17"] = phase17_oracle(dev, sc, stirling, pyp, card)
     paths["18"] = phase18_tools(dev, sc, agrid, stirling, pyp, card)
+    fills = {"K1": k_ms, "K2": k2["ms"], "K3_1048576": k3.pop("ms_2_20"),
+             "K3_65536": k3["ms"]}
+    paths["19"], probes = phase19_probes(dev, vp, card, fills)
     # every kernel of a path was launched in that path's own run
     for path, names in (("3", ["fill_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
@@ -2550,13 +2774,14 @@ def main():
                         ("16f", ["fill_grid"]),
                         ("17", ["fill_grid", "fill_table",
                                 "fill_table_cols"]),
-                        ("18", ["fill_grid", "fill_table_cols"])):
+                        ("18", ["fill_grid", "fill_table_cols"]),
+                        ("19", list(vp.PROBES))):
         for name in names:
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")
 
     def path_launches(name):
-        by_path = {p: c[name] for p, c in paths.items()}
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -2586,7 +2811,14 @@ def main():
         "replaces": "libstb_tpu/ops/stirling_pallas.py:652",
         **path_launches("fill_table_cols"),
         **k3,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "libstb_tpu_torch/csrc/vpu_probe.cu",
+        "replaces": PROBE_REPLACES[name],
+        **path_launches(name),
+        **probes[name],
+    } for name in vp.PROBES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

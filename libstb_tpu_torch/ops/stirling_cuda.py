@@ -27,27 +27,25 @@ which launches the kernel or raises.  Nothing falls back from a kernel to
 a plain version.
 
 Each kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C interface on first use, from the source in this package only, into
-``libstb_tpu_torch/_build/`` keyed by a hash of the source and flags, and
-bound with ctypes; the hash covers every header the source includes, and
-``build_all`` starts one nvcc per source, all at once.
+plain C interface on first use, from the source in this package only, by
+ops/_nvcc.py (into ``libstb_tpu_torch/_build/``, keyed by a hash of the
+source, every header it includes and the flags; one nvcc per source, all
+at once), and bound with ctypes.
 ``LAUNCHES[name]`` counts each kernel's launches, so a run can show that
 its fills went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from ..core import stirling
+from . import _nvcc
+from ._nvcc import BUILD_DIR as _BUILD_DIR, NVCC_FLAGS
+from ._nvcc import source_bytes as _source_bytes
 
 __all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref", "tile_plan",
            "fill_table", "fill_table_cuda", "fill_table_ref", "cols_plan",
@@ -59,9 +57,6 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 # The widest table K2 takes: the limit of its first design (a shared row
 # of f64 1/V per block), which the tiled walk no longer needs but which is
 # all K2 has been tested at; core/stirling.fill_route sends a wider table
@@ -97,61 +92,14 @@ _ARGTYPES = {
 }
 
 
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("stirling_cuda: nvcc not found (set CUDA_HOME)")
-
-
-_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
-
-
-def _source_bytes(path: Path, seen: set) -> bytes:
-    """``path``'s bytes followed by those of every file it includes with
-    quotes, recursively, each once."""
-    if path in seen:
-        return b""
-    seen.add(path)
-    src = path.read_bytes()
-    return src + b"".join(_source_bytes(path.parent / inc.decode(), seen)
-                          for inc in _INCLUDE.findall(src))
-
-
 def _target(name: str) -> Path:
-    src = _source_bytes(SOURCES[name], set())
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"{name}_{tag}.so"
+    return _nvcc.target(name, SOURCES[name])
 
 
 def build_all(names=KERNELS) -> dict:
     """Compile every named kernel not yet built, one nvcc process per
     source, all started together; returns {name: .so path}."""
-    outs = {name: _target(name) for name in names}
-    procs = {}
-    for name, out in outs.items():
-        if out.exists():
-            continue
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {SOURCES[name].name}:\n{err}")
-        else:
-            os.replace(tmp, outs[name])  # atomic against concurrent builds
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return outs
+    return _nvcc.build_all({name: SOURCES[name] for name in names})
 
 
 def load(name: str):

@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
             "libstb_tpu_torch.utils.checkpoint",
             "libstb_tpu_torch.utils.metrics",
             "libstb_tpu_torch.parallel.distributed",
-            "libstb_tpu_torch.native"} <= set(_modules())
+            "libstb_tpu_torch.native", "libstb_tpu_torch.ops._nvcc",
+            "libstb_tpu_torch.ops.vpu_probe_cuda"} <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['libstb_tpu'] = None\n"

@@ -1,0 +1,632 @@
+"""The probes of the card's floors (ops/vpu_probe_cuda.py, csrc/vpu_probe.cu,
+tools/vpu_probe_torch.py) held to the JAX probes of tools/vpu_probe.py.
+
+The JAX tool is imported as it is; its module's ``pl`` is swapped for a
+shim whose ``pallas_call`` runs in interpret mode and records the kernel's
+outputs, and each probe runs under ``jax.disable_jit()`` at a tiny shape.
+The TPU's (M, H, S, 128) outputs are the port's (m, n) tables with n = H
+S 128; its grid step j is the port's column j (P1, P4) or, for the
+issue-rate and scratch probes, whose output is the last step's, the
+threads t with t % 3 == j % 3 (the seed c = 1 + (j % 3) 1e-6).  The
+kernels themselves run on a card only (marker ``cuda``); chip_smoke.py's
+phase 19 holds them to these plain versions there.
+"""
+import json
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from libstb_tpu_torch.ops import _nvcc
+from libstb_tpu_torch.ops import stirling_cuda as sc
+from libstb_tpu_torch.ops import vpu_probe_cuda as vp
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+import vpu_probe as jvp  # noqa: E402  the JAX tool, unedited
+import vpu_probe_torch as tool  # noqa: E402
+
+torch.set_num_threads(1)
+
+STEPS = 3                      # the JAX probes' grid: its last step j = 2
+F32_ULP = 2.0 ** -23
+
+
+@pytest.fixture
+def jax_probe(monkeypatch):
+    """run(fn, *lead, raises=None, **kw): a JAX probe of tools/vpu_probe.py
+    in interpret mode, ``lead`` its arguments before the overhead
+    (``raises``: the exception its timing code ends in);
+    returns the outputs of its last pallas_call as numpy arrays."""
+    outs = []
+
+    def pallas_call(*args, **kw):
+        call = pl.pallas_call(*args, interpret=True, **kw)
+
+        def run(*xs):
+            out = call(*xs)
+            outs.append(out)
+            return out
+        return run
+
+    shim = types.SimpleNamespace(**{k: getattr(pl, k) for k in dir(pl)
+                                    if not k.startswith("__")})
+    shim.pallas_call = pallas_call
+    monkeypatch.setattr(jvp, "pl", shim)
+
+    def run(fn, *lead, raises=None, **kw):
+        with jax.disable_jit():
+            if raises is None:
+                fn(*lead, 0.0, **kw)
+            else:
+                with pytest.raises(raises):
+                    fn(*lead, 0.0, **kw)
+        last = outs[-1]
+        return ([np.asarray(x) for x in last]
+                if isinstance(last, (list, tuple)) else np.asarray(last))
+    return run
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the probes have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+# -- P1 -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["full", "piecewise", "onecol"])
+def test_write_floor_matches_jax(jax_probe, mode):
+    """V exactly: the per-column constants, and for piecewise the
+    sub-stores' recurrence acc 0.9999 + 1e-5 (u = 2 slabs of (2, 128) =
+    512 rows), one f32 FMA as XLA's CPU evaluation carries it.  Srel
+    exactly, but piecewise: its acc + 1 is V + 1 in the port, while XLA
+    forms that acc again unfused, so 1 f32 ulp apart where the product
+    rounds a tie (3 x 0.9999).  The JAX tool's onecol timing indexes its
+    one-output list as an array (tools/vpu_probe.py:111-114) and raises
+    after the kernel ran, so its V is the shim's record."""
+    m, h, s, u = 3, 8, 2, 2
+    out = jax_probe(jvp.write_floor, raises=TypeError if mode == "onecol"
+                    else None, m=m, h=h, s=s, k=1, mode=mode, u=u)
+    want_v, want_s = vp.write_floor_ref(m, h * s * 128, mode,
+                                        piece=u * s * 128)
+    np.testing.assert_array_equal(out[0].reshape(m, -1), want_v.numpy())
+    if mode == "onecol":
+        assert len(out) == 1 and want_s is None
+        return
+    np.testing.assert_allclose(out[1].reshape(m, -1), want_s.numpy(),
+                               rtol=F32_ULP if mode == "piecewise" else 0,
+                               atol=0)
+    assert torch.equal(want_s, want_v + 1)
+    if mode == "piecewise":
+        assert want_v[0, 511] == 1.0 and want_v[0, 512] < 1.0
+
+
+@pytest.mark.parametrize("n,piece", [(1000, 300), (4096, 32768), (97, 32)])
+def test_write_floor_ref_pieces(n, piece):
+    """A piece's value holds from its first row to the next piece's, the
+    last piece cut by n; Srel = V + 1; full and onecol are constant."""
+    v, s = vp.write_floor_ref(9, n, "piecewise", piece)
+    assert v.shape == s.shape == (9, n) and v.dtype == torch.float32
+    torch.testing.assert_close(s, v + 1, rtol=0, atol=0)
+    for p in range(0, n, piece):
+        block = v[:, p:p + piece]
+        assert torch.equal(block, block[:, :1].expand_as(block))
+    assert torch.equal(v[:, 0], 1 + (torch.arange(9) % 7).float())
+    full_v, full_s = vp.write_floor_ref(9, n, "full")
+    assert torch.equal(full_s, full_v + 1) and torch.equal(
+        full_v[:, -1], v[:, 0])
+    assert vp.write_floor_ref(9, n, "onecol")[1] is None
+
+
+# -- P2 -------------------------------------------------------------------------
+
+def _source_threads(op, threads, steps):
+    """The thread whose stream each entry holds after ``steps`` steps: its
+    own, or for roll the lane ``steps`` ahead within its warp."""
+    t = np.arange(threads)
+    if op != "roll":
+        return t
+    return t - t % 32 + (t % 32 + steps) % 32
+
+
+def _bf16_recip_orbit(u, steps, c):
+    """pl.reciprocal(approx=True) off the TPU: the f32 reciprocal of its
+    input rounded to bf16 (jax/_src/pallas/primitives.py)."""
+    xs = [torch.tensor(vp.X0 + vp.DX * i, dtype=torch.float32) * c
+          for i in range(u)]
+    for _ in range(steps):
+        xs = [1 / x.to(torch.bfloat16).float() for x in xs]
+    return sum(xs[1:], xs[0]).item()
+
+
+def _folded_mul_orbit(u, steps, c):
+    """The JAX probe's mul chain as its interpret mode evaluates it on the
+    CPU: each stream x (1.0000001f)^steps, rounded to f32 once, not at
+    every step."""
+    mul = np.float64(np.float32(1.0000001)) ** steps
+    xs = [np.float32(np.float64(np.float32(vp.X0 + vp.DX * i) * c) * mul)
+          for i in range(u)]
+    return sum(xs[1:], xs[0])
+
+
+@pytest.mark.parametrize("op", vp.ALU_OPS[torch.float32])
+def test_alu_matches_jax(jax_probe, op):
+    """Each f32 op's sum of 2 streams after 2 x 2 steps: within 1e-6
+    relative (the CPU's f32 log and divide in both).  The approximate
+    reciprocal: JAX's interpret mode rounds each step's input to bf16
+    (exactly _bf16_recip_orbit), 2^-9 relative a step, so the port's
+    orbit (the card's rcp.approx, ~1 ulp; plain: 1/x) is within 4 x 2^-9
+    of it.  mul runs 8 x 8 steps, so that its drift is well past the
+    tolerance: JAX's interpret mode rounds the chain once (exactly
+    _folded_mul_orbit), the port at every step, as the card does, half an
+    f32 ulp (2^-24 relative at x >= 1) a step at most, while the orbit
+    moves 1.0000001f - 1 = 2^-23 a step: a plain version that skipped the
+    steps would miss by twice the tolerance.  roll: the JAX probe rotates
+    a uniform tile, so this case holds only the sum;
+    test_alu_roll_ref_rotates_lanes holds the rotation."""
+    u, r, unroll = (2, 8, 8) if op == "mul" else (2, 2, 2)
+    out = jax_probe(jvp.alu_kernel, op, u=u, r=r, unroll=unroll,
+                    steps=STEPS, k=1)
+    assert np.all(out == out.flat[0])
+    got = vp.alu_ref(op, torch.float32, u, r, unroll, threads=64).numpy()
+    src = _source_threads(op, 64, r * unroll)
+    pick = got[src % 3 == (STEPS - 1) % 3]
+    rtol = 1e-6
+    if op == "recip":
+        c = 1 + torch.tensor(float((STEPS - 1) % 3)) * vp.EPS
+        assert out.flat[0] == _bf16_recip_orbit(u, r * unroll, c)
+        rtol = r * unroll * 2.0 ** -9
+    if op == "mul":
+        c = np.float32(1) + np.float32((STEPS - 1) % 3) * np.float32(vp.EPS)
+        assert out.flat[0] == _folded_mul_orbit(u, r * unroll, c)
+        rtol = r * unroll * 2.0 ** -24
+        start = vp.alu_ref(op, torch.float32, u, 0, unroll, threads=64)
+        moved = (got / start.numpy() - 1)[src % 3 == (STEPS - 1) % 3]
+        assert np.all(moved > 1.5 * rtol)
+    np.testing.assert_allclose(pick, out.flat[0], rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("steps", [1, 5, 31, 32, 37])
+def test_alu_roll_ref_rotates_lanes(steps):
+    """The plain roll against numpy's rotation of lanes that differ (the
+    seed 1 + (t % 3) EPS has no period that divides 32, so a warp's
+    rotation by s is the identity only for s % 32 == 0): lane l holds lane
+    (l + steps) % 32's streams."""
+    u, threads = 3, 64
+    got = vp.alu_ref("roll", torch.float32, u, 1, steps, threads)
+    start = vp.alu_ref("roll", torch.float32, u, 0, 1, threads).numpy()
+    want = np.roll(start.reshape(-1, 32), -steps, axis=1).reshape(-1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if steps % 32:
+        assert not np.array_equal(got.numpy(), start)
+
+
+@pytest.mark.parametrize("op,dtype", [
+    (op, d) for d, ops in vp.ALU_OPS.items() for op in ops])
+def test_alu_period(op, dtype):
+    """Thread t of a larger grid holds thread t % ALU_PERIOD's sum: the
+    tool holds a full wave to a plain version of ALU_PERIOD threads."""
+    threads = 4 * vp.ALU_PERIOD + 64
+    big = vp.alu_ref(op, dtype, 2, 1, 5, threads)
+    small = vp.alu_ref(op, dtype, 2, 1, 5, vp.ALU_PERIOD)
+    assert torch.equal(big, small[torch.arange(threads) % vp.ALU_PERIOD])
+
+
+def _numpy_orbit(op, u, steps, threads):
+    t = np.arange(threads)
+    c = 1 + (t % 3).astype(np.float64) * vp.EPS
+    x = np.stack([np.float64(vp.X0 + vp.DX * i) * c for i in range(u)])
+    for _ in range(steps):
+        if op == "fma":
+            x = x * 0.5 + 0.75
+        elif op == "mul":
+            x = x * 1.0000001
+        elif op in ("div", "div_pos"):
+            x = (x + 1) / x
+        elif op in ("log", "log_pos"):
+            x = np.log(x) + 1.54
+        else:                                   # shfl: from lane l - 1
+            w = x.reshape(u, -1, 32)
+            x = np.concatenate([w[..., :1], w[..., :-1]], 2).reshape(u, -1)
+    acc = x[0]
+    for i in range(1, u):
+        acc = acc + x[i]
+    return acc
+
+
+@pytest.mark.parametrize("op", vp.ALU_OPS[torch.float64])
+def test_alu_f64_orbits_match_numpy(op):
+    """The f64 ops' plain orbits against numpy: exact for the FMA, mul,
+    divide and shuffle, 1e-15 relative for the log (two libm's)."""
+    for u in vp.ALU_U.get(op, (8,)):
+        got = vp.alu_ref(op, torch.float64, u, 3, 8, threads=96).numpy()
+        want = _numpy_orbit(op, u, 24, 96)
+        np.testing.assert_allclose(got, want, atol=0,
+                                   rtol=1e-15 if "log" in op else 0)
+        assert np.all(np.isfinite(got)) and np.all(got > 0)
+
+
+def test_alu_orbits_stay_in_range():
+    """The orbits are contractive or of period 2: fma to 1.5 a stream, div
+    to the golden ratio, log to the fixed point of log x + 1.54, recip
+    back to its start after an even count, shfl to lane 0's stream."""
+    sums = {op: vp.alu_ref(op, torch.float64, 8, 32, 8, threads=64)
+            for op in ("fma", "div", "log")}
+    assert torch.allclose(sums["fma"], torch.full((64,), 12.0, dtype=torch.float64))
+    phi = (1 + 5 ** 0.5) / 2
+    assert torch.allclose(sums["div"], torch.full((64,), 8 * phi,
+                                                  dtype=torch.float64))
+    fp = sums["log"][0] / 8
+    assert abs(float(torch.log(fp) + 1.54 - fp)) < 1e-12
+    rec = vp.alu_ref("recip", torch.float32, 8, 1, 8, threads=32)
+    start = vp.alu_ref("fma", torch.float32, 8, 0, 8, threads=32)
+    torch.testing.assert_close(rec, start, rtol=1e-6, atol=0)
+    sh = vp.alu_ref("shfl", torch.float64, 8, 4, 8, threads=64)
+    assert torch.equal(sh[:32], sh[:1].expand(32)) and torch.equal(
+        sh[32:], sh[32:33].expand(32))
+
+
+# -- P3 -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", vp.SMEM_MODES)
+def test_smem_matches_jax(jax_probe, mode):
+    """The accumulator after one pass over 4 rows, exactly: the TPU's h = 4
+    slabs a step are a thread's k = 4 rows; loads read the zeroed state,
+    stores carry acc."""
+    h = 4
+    out = jax_probe(jvp.vmem_kernel, mode, h=h, s=8, steps=STEPS, k=1, u=2)
+    assert np.all(out == out.flat[0])
+    got = vp.smem_ref(mode, torch.float32, chunk=h * vp.ROW_THREADS,
+                      steps=1, blocks=1).numpy()
+    pick = got[np.arange(got.size) % 3 == (STEPS - 1) % 3]
+    np.testing.assert_array_equal(pick, np.full_like(pick, out.flat[0]))
+
+
+# -- P4 -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("iters,ulps", [(200, 0), (16, 4)])
+def test_overlap_matches_jax(jax_probe, iters, ulps):
+    """V = acc_j and Srel = acc_j + 1 of column j.  At 200 steps both
+    chains sit at their fixed point (4 x 1.5) and agree exactly; at 16 the
+    port's f64 chain, rounded once to f32, is within 4 f32 ulps of the
+    TPU's f32 chain, rounded at each of its steps and sums."""
+    m, h, s = 3, 4, 2
+    v, srel = jax_probe(jvp.overlap_probe, m=m, h=h, s=s, k=1,
+                        alu_iters=iters)
+    want_v, want_s = vp.overlap_ref(m, h * s * 128, iters)
+    for got, want in ((v, want_v), (srel, want_s)):
+        np.testing.assert_allclose(got.reshape(m, -1), want.numpy(), atol=0,
+                                   rtol=ulps * F32_ULP)
+    if iters == 200:
+        assert np.all(v == 6.0) and np.all(srel == 7.0)
+
+
+def test_overlap_ref_chains_alone():
+    """Without the stores each row thread sums acc_j over its block's
+    chunks and columns: two chunks for the first blocks past one wave."""
+    n, m, sms = 40000, 3, 2
+    plan = sc.cols_plan(n, m, sms)
+    assert plan.chunks == 5 and plan.blocks == 2
+    sink = vp.overlap_ref(m, n, 16, store=False, sms=sms)
+    assert sink.shape == (plan.blocks * vp.ROW_THREADS,)
+    col = vp.overlap_ref(m, n, 16)[0][:, 0].double()
+    per = [sink[b * vp.ROW_THREADS].item() for b in range(plan.blocks)]
+    chunks = [len(range(b, plan.chunks, plan.blocks)) for b in range(2)]
+    assert chunks == [3, 2]
+    for b in range(2):
+        assert per[b] == pytest.approx(chunks[b] * float(col.sum()),
+                                       rel=1e-6)
+
+
+# -- the wrappers, the builder, the tool -----------------------------------------
+
+@pytest.mark.parametrize("call", [
+    lambda: vp.write_floor_cuda(4, 1024, device="cpu"),
+    lambda: vp.alu_cuda("fma", device="cpu"),
+    lambda: vp.alu_blocks("fma", device="cpu"),
+    lambda: vp.smem_cuda("load1", device="cpu"),
+    lambda: vp.overlap_cuda(4, 1024, device="cpu")],
+    ids=["write_floor", "alu", "alu_blocks", "smem", "overlap"])
+def test_cuda_wrappers_refuse_the_cpu(call):
+    """Nothing falls back to a plain version: a CPU device raises."""
+    before = dict(vp.LAUNCHES)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        call()
+    assert vp.LAUNCHES == before
+
+
+def test_alu_rtol():
+    """The stated tolerances: f32 1e-5, recip and logf 1e-4, f64 1e-12."""
+    assert vp.alu_rtol("fma", torch.float32) == 1e-5
+    assert vp.alu_rtol("recip", torch.float32) == 1e-4
+    assert vp.alu_rtol("log", torch.float32) == 1e-4
+    assert {vp.alu_rtol(op, torch.float64)
+            for op in vp.ALU_OPS[torch.float64]} == {1e-12}
+
+
+def test_alu_wrappers_check_ops():
+    with pytest.raises(ValueError, match="no op"):
+        vp.alu_ref("div_pos", torch.float32)
+    with pytest.raises(ValueError, match="no op"):
+        vp.alu_ref("roll", torch.float64)
+    for op in ("log", "roll"):
+        with pytest.raises(ValueError):
+            vp._check_alu("f", op, torch.float32, 4, 1, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vp._check_alu("f", "fma", torch.float32, 8, 3, 1)
+    assert vp._check_alu("f", "fma", torch.float64, 16, 3, 8) == 24
+
+
+def test_builder_keeps_k1_k3_and_builds_the_probes(tmp_path, monkeypatch):
+    """ops/_nvcc.py builds both modules' sources: K1-K3 keep their names
+    and targets, the probes' library is named by its own source and
+    row_walk.cuh (which it includes for div_pos / log_pos), and an edit
+    of the header renames all four libraries."""
+    assert sc.KERNELS == ("fill_grid", "fill_table", "fill_table_cols")
+    for name in sc.KERNELS:
+        assert sc._target(name) == _nvcc.target(name, sc.SOURCES[name])
+        assert sc._target(name).parent == _nvcc.BUILD_DIR == sc._BUILD_DIR
+    src = vp.SOURCES["vpu_probe"]
+    assert src.parent == sc.SOURCES["fill_grid"].parent
+    assert b'#include "row_walk.cuh"' in src.read_bytes()
+    assert "stb_vpu_write_full" in src.read_text()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in src.parent.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    sources = {**{n: csrc / p.name for n, p in sc.SOURCES.items()},
+               "vpu_probe": csrc / src.name}
+    before = {n: _nvcc.target(n, p) for n, p in sources.items()}
+    assert before["vpu_probe"] == _nvcc.target("vpu_probe", src)
+    assert before["vpu_probe"].name.startswith("vpu_probe_")
+    header = csrc / "row_walk.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _nvcc.target(n, p) for n, p in sources.items()}
+    assert all(after[n] != before[n] for n in sources)
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "_build").mkdir()
+    for out in after.values():          # every library present: no nvcc
+        (tmp_path / "_build" / out.name).write_bytes(b"")
+    built = _nvcc.build_all(sources)
+    assert set(built) == set(sources) and all(p.exists()
+                                              for p in built.values())
+
+
+def test_tool_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main([])
+
+
+def test_tool_runs_without_jax():
+    """--device cpu runs every probe's plain version at a tiny size with
+    jax and the JAX package unimportable, and prints one JSON object."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['libstb_tpu'] = None\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import vpu_probe_torch\n"
+            "vpu_probe_torch.main(['--device', 'cpu'])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["device"] == "cpu, host clock"
+    assert set(out["write"]) == {"full", "piecewise", "onecol",
+                                 "piecewise_512"}
+    assert {f"{'f32' if d == torch.float32 else 'f64'}_{op}_u{u}"
+            for d, ops in vp.ALU_OPS.items() for op in ops
+            for u in vp.ALU_U.get(op, (8,))} == set(out["alu"])
+    assert len(out["smem"]) == 2 * len(vp.SMEM_MODES)
+    assert set(out["floors"]["kernels"]) == {"K1", "K2", "K3_1048576",
+                                             "K3_65536"}
+    assert "[cpu, host clock]" in res.stderr
+
+
+def _readings(fma=16e12, div=2e12, log=0.6e12, chains=2.0, stores=3.0,
+              both=3.5, write_ms=2.5):
+    n, m = tool.K3_SHAPES[0]
+    alu = {f"f64_fma_u{u}": {"dtype": "f64", "ops_per_s": fma * u / 16}
+           for u in (4, 8, 16)}
+    alu["f64_div_pos_u8"] = {"dtype": "f64", "ops_per_s": div}
+    alu["f64_log_pos_u8"] = {"dtype": "f64", "ops_per_s": log}
+    write = {"full": {"mode": "full", "n": n, "m": m, "ms": write_ms,
+                      "bytes": 8 * n * m, "GBps": 8 * n * m / write_ms / 1e6},
+             "piecewise": {"mode": "piecewise", "n": n, "m": m, "ms": 3.0,
+                           "bytes": 8 * n * m,
+                           "GBps": 8 * n * m / 3.0 / 1e6}}
+    ov = {"128": {"iters": 128, "chains_ms": chains, "stores_ms": stores,
+                  "both_ms": both, "fraction": (chains + stores - both)
+                  / min(chains, stores)}}
+    return {"alu": alu, "write": write, "overlap": ov,
+            "overlap_shape": [n, m]}
+
+
+def test_floors_take_the_fraction_unclamped():
+    """A fraction a little past 1 (noise) is used as read, not clamped:
+    the combined floor then sits under the larger one by (f - 1) of the
+    smaller; impossible() bounds it instead."""
+    res = _readings(chains=2.0, stores=3.0, both=2.96)
+    fl = tool.floors(res)
+    assert fl["overlap_fraction"] == pytest.approx(1.02)
+    k3 = fl["kernels"]["K3_1048576"]
+    w, i = k3["write_floor_ms"], k3["issue_floor_ms"]
+    assert k3["floor_ms"] == pytest.approx(max(w, i) - 0.02 * min(w, i))
+    assert tool.impossible(res) == []
+
+
+def test_floors_from_readings():
+    """The issue floor prices a cell's other f64 work at the best FMA rate
+    and its divides and log at theirs, less the add each probe step
+    carries; the write floor is K3's piecewise time or the full rate; the
+    overlap fraction sets max or sum."""
+    res = _readings()
+    fl = tool.floors(res)
+    assert fl["f64_fma_per_s"] == 16e12 and fl["overlap_fraction"] == 0.75
+    cell = (11 - 3) / 16e12 + 2 / 2e12 + 1 / 0.6e12
+    k1 = fl["kernels"]["K1"]
+    assert k1["cells"] == 64 * 16384 * 1024
+    assert k1["issue_floor_ms"] == pytest.approx(k1["cells"] * cell * 1e3)
+    assert k1["write_from"] == "full"
+    assert k1["write_floor_ms"] == pytest.approx(2.5 * 64 * 16384 / (1 << 20))
+    k3 = fl["kernels"]["K3_1048576"]
+    assert k3["write_from"] == "piecewise" and k3["write_floor_ms"] == 3.0
+    w, i = k3["write_floor_ms"], k3["issue_floor_ms"]
+    assert k3["floor_ms"] == pytest.approx(max(w, i) + 0.25 * min(w, i))
+    assert fl["kernels"]["K3_65536"]["write_from"] == "full"
+
+
+def test_impossible_readings_fail():
+    """A byte rate or an op rate above 105% of the data sheet is reported;
+    the readings just under it are not."""
+    assert tool.impossible(_readings()) == []
+    assert tool.impossible(_readings(fma=17.8e12)) == []
+    bad = tool.impossible(_readings(fma=18e12, write_ms=2.4))
+    assert any(b.startswith("alu f64_fma_u16") for b in bad)
+    assert any(b.startswith("write full") for b in bad)
+    assert tool.impossible(_readings(stores=2.4, both=2.4))
+
+
+@pytest.mark.parametrize("both,ok", [(2.95, True), (2.0, False),
+                                     (5.2, False), (5.05, True)])
+def test_impossible_overlap_fraction(both, ok):
+    """Chains 2 ms, stores 3 ms: a fraction over 1.05 (both faster than
+    the stores alone by more than noise: work removed) or under -0.05
+    (both slower than the sum) is reported."""
+    bad = tool.impossible(_readings(chains=2.0, stores=3.0, both=both))
+    assert (bad == []) == ok
+    assert ok or any("fraction" in b for b in bad)
+
+
+def test_impossible_reports_mismatches_and_missing_steps():
+    res = _readings()
+    res["mismatch"] = ["alu f32_mul_u8: relative error 0.0016"]
+    res["sass"] = {"kernels": {}, "short": ["sass alu_f32_recip_u8: 0 "
+                                            "MUFU.RCP < 64"]}
+    assert tool.impossible(res) == res["mismatch"] + res["sass"]["short"]
+
+
+def _sass(counts):
+    """cuobjdump -sass text of the probes' P2 / P4 kernels with ``counts``
+    ({kernel key: count of its mark}; the rest at their loop's steps)."""
+    lines = ["", "Fatbin elf code:", "================", "arch = sm_90a",
+             "", "\tcode for sm_90a"]
+    addr = 0
+
+    def emit(name, body):
+        nonlocal addr
+        lines.append(f"\t\tFunction : _ZN45_GLOBAL__N__d5eaa224_12_vpu_"
+                     f"probe_cu_f64d4cb4{name}")
+        lines.append('\t.headerflags\t@"EF_CUDA_SM90"')
+        for op in ["LDC R1, c[0x0][0x28] ;", "S2R R0, SR_TID.X ;"] + body + [
+                "@!P0 BRA 0x40 ;", "EXIT ;"]:
+            lines.append(f"        /*{addr:04x}*/                   {op}"
+                         "   /* 0x000fe40000000800 */")
+            addr += 16
+        lines.append("        ..........")
+    for d, ops in vp.ALU_OPS.items():
+        t = "f" if d == torch.float32 else "d"
+        for op in ops:
+            for u in vp.ALU_U.get(op, (8,)):
+                key = f"alu_{'f32' if t == 'f' else 'f64'}_{op}_u{u}"
+                mark = tool.SASS_MARKS[(t, op)]
+                need = 8 * u * (2 if op == "shfl" else 1)
+                n = counts.get(key, need)
+                body = [f"{mark} R4, R4, R6 ;"] * n + ["DADD R2, R2, R4 ;"]
+                if key == "alu_f64_div_u8":     # a predicated mark counts
+                    body[0] = f"@P1 {mark} R5, R4 ;"
+                emit(f"10alu_kernelI{t}Li{vp.OP_CODES[op]}ELi{u}EEEvPT_"
+                     f"ddddi", body)
+    for alu in (0, 1):
+        for store in (0, 1):
+            if alu or store:
+                n = counts.get(f"overlap_store{store}", 32) if alu else 0
+                emit(f"14overlap_kernelILb{alu}ELb{store}EEEvPfS1_Pdiiiiiddd",
+                     ["DFMA R4, R4, 0.5, R6 ;"] * n + ["STG.E [R2], R4 ;"])
+    emit("11smem_kernelILi0ELb1EEEvPddii", ["LDS.64 R4, [R2] ;"])
+    return "\n".join(lines) + "\n"
+
+
+def test_compiled_work_counts_each_kernels_steps():
+    """Every P2 / P4 kernel's mark at its loop's steps passes; MUFU.RCP64H
+    is not counted as MUFU.RCP; the stores-alone P4 kernel and P3's are
+    not held to a chain."""
+    rows, short = tool.compiled_work(_sass({}))
+    assert short == []
+    assert rows["alu_f64_fma_u16"] == {"mark": "DFMA", "count": 128,
+                                       "need": 128}
+    assert rows["alu_f64_shfl_u8"]["need"] == 128
+    assert rows["overlap_store1"]["count"] == 32
+    assert len(rows) == sum(len(vp.ALU_U.get(op, (8,)))
+                            for ops in vp.ALU_OPS.values() for op in ops) + 2
+    assert tool.sass_opcodes("") == {}
+
+
+@pytest.mark.parametrize("key,count", [("alu_f32_recip_u8", 32),
+                                       ("alu_f32_roll_u8", 0),
+                                       ("alu_f64_log_pos_u8", 63),
+                                       ("overlap_store0", 8)])
+def test_compiled_work_reports_folded_steps(key, count):
+    """A kernel with fewer marks than its loop's steps (ptxas cancelling
+    rcp(rcp(x)), a rotation by 32 dropped, a chain cut short) is a
+    shortfall."""
+    rows, short = tool.compiled_work(_sass({key: count}))
+    assert rows[key]["count"] == count
+    assert short == [f"sass {key}: {count} {rows[key]['mark']} < "
+                     f"{rows[key]['need']}"]
+
+
+def test_compiled_work_reports_missing_kernels():
+    text = _sass({})
+    cut = text.index("alu_kernelIfLi5")          # the f32 roll kernel
+    start = text.rindex("\t\tFunction", 0, cut)
+    end = text.index("\t\tFunction", cut)
+    _, short = tool.compiled_work(text[:start] + text[end:])
+    assert short == ["sass alu_f32_roll_u8: not in the library"]
+
+
+# -- on the card ----------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", vp.WRITE_MODES)
+def test_write_floor_kernel_matches_ref(cuda_device, mode):
+    for n, m in ((40000, 9), (1 << 21, 4)):
+        got = vp.write_floor_cuda(m, n, mode, device=cuda_device)
+        want = vp.write_floor_ref(m, n, mode, device=cuda_device)
+        for g, w in zip(got, want):
+            assert g is w is None or torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_alu_kernel_matches_ref(cuda_device, dtype):
+    for op in vp.ALU_OPS[dtype]:
+        for u in vp.ALU_U.get(op, (8,)):
+            got = vp.alu_cuda(op, dtype, u, 8, 8, device=cuda_device)
+            want = vp.alu_ref(op, dtype, u, 8, 8, got.numel(), cuda_device)
+            torch.testing.assert_close(got, want, rtol=vp.alu_rtol(op, dtype),
+                                       atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", vp.SMEM_MODES)
+def test_smem_and_overlap_kernels_match_ref(cuda_device, mode):
+    for pad in (True, False):
+        got = vp.smem_cuda(mode, pad, steps=3, device=cuda_device)
+        want = vp.smem_ref(mode, torch.float64, vp.headline_chunk(
+            torch.cuda.get_device_properties(
+                cuda_device).multi_processor_count), 3,
+            got.numel() // vp.ROW_THREADS, cuda_device)
+        assert torch.equal(got, want)
+    got = vp.overlap_cuda(9, 40000, 16, device=cuda_device)
+    want = vp.overlap_ref(9, 40000, 16, device=cuda_device)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -48,7 +48,7 @@ def build(path: str):
     out = sc._BUILD_DIR / f"compare_{os.path.basename(path)}_{tag}.so"
     if not out.exists():
         sc._BUILD_DIR.mkdir(exist_ok=True)
-        subprocess.run([sc._nvcc(), *sc.NVCC_FLAGS, "-I",
+        subprocess.run([sc._nvcc.nvcc(), *sc.NVCC_FLAGS, "-I",
                         str(sc.SOURCES["fill_table_cols"].parent), "-o",
                         str(out), path], check=True)
     lib = ctypes.CDLL(str(out))

@@ -1,0 +1,520 @@
+#!/usr/bin/env python
+"""The card's floors for the Stirling fills K1-K3: the PyTorch/CUDA
+counterpart of tools/vpu_probe.py (its main(): the write floor, the issue
+rates, the on-chip memory's access cost) and of its overlap_probe, at the
+JAX tool's shapes translated to the card (ops/vpu_probe_cuda.py):
+
+  write    P1 at K3's headline table, (n, m) = (2^20, 1024) f32 x 2 (the
+           TPU probe's grid (1024,) of 2 x (256, 32, 128) blocks): full
+           (the card's write floor), piecewise (K3's store pattern), onecol
+           (V alone); piecewise again at (2^16, 1024)
+  alu      P2: every op in f32 and f64 at u = 8 streams, the FMA also at 4
+           and 16, 2048 x 8 steps a stream, one full wave of blocks
+  smem     P3: K3's row state (f64, its headline chunk, one 512-thread
+           block an SM), load1 / load8 / store1 / store8, with and without
+           the pad, 1024 steps (one a K3 column); ns per warp access an SM
+  overlap  P4: K3's geometry at (2^20, 1024), FMA chains of 64, 128 and 256
+           steps a column: the chains alone, the stores alone, both
+
+and from them the floors of K1 at its benchmark shape (64 x 16384 x 1024),
+K2 at (16384, 1024) and K3 at (2^20, 1024) and (2^16, 1024):
+
+  write floor  K3: its store pattern's time (P1 piecewise); K1, K2: their
+               bytes at the card's write rate (P1 full)
+  issue floor  a cell's f64 work over the measured rates: 2 div_pos + 1
+               log_pos + the cell's other f64 arithmetic (CELL_F64, counted
+               from csrc/row_walk.cuh and csrc/fill_table_cols.cu)
+  overlap      f = (t_chains + t_stores - t_both) / min(t_chains, t_stores)
+               at the chain length where the two are closest: 1 if the card
+               runs the two at once (the floors take their max), 0 if one
+               after the other (they add)
+
+Times are CUDA events, the median of 5 after a warm call.  The card's name,
+power limit and SM clock under load (nvidia-smi, sampled while an FMA probe
+runs) are printed beside the rates.  A reading that cannot stand fails the
+run (impossible()):
+
+  * a rate above 105% of the data sheet's peak (3.35 TB/s; 17e12 f64 and
+    33.5e12 f32 FMA/s): the compiler removed work;
+  * a timed call's output that differs from its plain version
+    (ops/vpu_probe_cuda.py's *_ref, on the same card at the same shape;
+    P2's within vp.alu_rtol): the kernel computed something else;
+  * a P2 or P4 kernel whose compiled code (cuobjdump -sass of the library)
+    holds fewer of its op's instructions than the steps of its unrolled
+    loop (SASS_MARKS): the compiler folded steps away.  Most orbits reach
+    their fixed point or cycle (roll has period 32) long before the 2048 x
+    8 steps, so their values cannot show a step that was skipped; the
+    instructions can;
+  * an overlap fraction outside [-0.05, 1.05].
+
+Readable lines go to stderr, one JSON object to stdout.
+
+--device cpu runs the plain versions at a tiny size, for the tests only:
+those times are the CPU's and mean nothing.
+
+Usage:  python tools/vpu_probe_torch.py [--device cuda]
+"""
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import numpy as np
+import torch
+
+from libstb_tpu_torch.ops import _nvcc
+from libstb_tpu_torch.ops import vpu_probe_cuda as vp
+
+HBM_BPS = 3.35e12                       # H100 SXM data sheet
+PEAK_OPS = {torch.float64: 17e12, torch.float32: 33.5e12}   # FMA/s
+PLAUSIBLE = 1.05                        # of a peak: more means lost work
+OVERLAP_RANGE = (-0.05, 1.05)           # the overlap fraction's, with noise
+
+K1_SHAPE = (64, 1 << 14, 1024)          # bench.py:77, (G, n, m)
+K2_SHAPE = (1 << 14, 1024)              # phase 5c, (n, m)
+K3_SHAPES = ((1 << 20, 1024), (1 << 16, 1024))   # bench.py:108-140, 6c
+# f64 arithmetic a cell beside its two div_pos and one log_pos: K1 / K2's
+# row step (row_walk.cuh, walk_rows, lean body: numer 2, denom 2, U 1,
+# fmax 1, the log's -d1 or *1/(n-1-a) 1, Kahan 4); K3's (fill_table_cols.cu:
+# row_map twice at 4, the composition 2, the replay 1, store_row's Kahan 4)
+CELL_F64 = {"K1": 11, "K2": 11, "K3": 15}
+
+SIZES = {
+    "cuda": dict(write=K3_SHAPES, alu_r=2048, smem_steps=1024,
+                 overlap_iters=(64, 128, 256), overlap_shape=K3_SHAPES[0]),
+    "cpu": dict(write=((1024, 4), (512, 4)), alu_r=2, smem_steps=1,
+                overlap_iters=(8, 16), overlap_shape=(1024, 4)),
+}
+CPU_THREADS = 64                        # P2's threads on the CPU
+CPU_SMEM_CHUNK = 1024                   # P3's chunk on the CPU
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if device.type != "cuda":
+        return "cpu, host clock"
+    return _smi(device, "name,power.limit")
+
+
+def _smi(device, query: str) -> str:
+    res = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
+         f"--id={device.index}"], capture_output=True, text=True, check=True)
+    return res.stdout.strip()
+
+
+def timed(fn, device, reps=5):
+    """(median ms over ``reps`` runs after a warm call, last result):
+    CUDA events on a card, the host clock on the CPU."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def _say(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _mismatch(res, what):
+    """Record that a timed call's output differs from its plain version."""
+    res.setdefault("mismatch", []).append(what)
+
+
+def write_floors(device, card, shapes, res, reps=5):
+    """P1's modes at shapes[0], piecewise at the others: ms and GB/s.  On
+    the card each mode's output is held bitwise to write_floor_ref."""
+    on_card = device.type == "cuda"
+    rows = {}
+    n, m = shapes[0]
+    out = (torch.empty((m, n), device=device),
+           torch.empty((m, n), device=device)) if on_card else None
+    todo = [(mode, n, m) for mode in vp.WRITE_MODES] + [
+        ("piecewise", n_, m_) for n_, m_ in shapes[1:]]
+    for mode, n_, m_ in todo:
+        if on_card:
+            o = out if (n_, m_) == (n, m) else None
+            fn = (lambda: vp.write_floor_cuda(m_, n_, mode, device=device,
+                                              out=o))
+        else:
+            fn = (lambda: vp.write_floor_ref(m_, n_, mode, device=device))
+        ms, got = timed(fn, device, reps)
+        nbytes = (1 if mode == "onecol" else 2) * 4 * m_ * n_
+        key = mode if (n_, m_) == (n, m) else f"{mode}_{n_}"
+        if on_card:
+            want = vp.write_floor_ref(m_, n_, mode, device=device)
+            if not all(g is w is None or torch.equal(g, w)
+                       for g, w in zip(got, want)):
+                _mismatch(res, f"write {key}")
+            del want
+        del got
+        rows[key] = {"mode": mode, "n": n_, "m": m_, "ms": ms,
+                     "bytes": nbytes, "GBps": nbytes / (ms * 1e6)}
+        _say(f"write {mode:9s} (n, m) = ({n_}, {m_}): {ms:.4f} ms = "
+             f"{nbytes / (ms * 1e6):.1f} GB/s [{card}]")
+    del out
+    return rows
+
+
+def alu_rates(device, card, r, res, reps=5):
+    """P2 for every op: ms, ops/s (one op = one step of one stream of one
+    thread), threads.  On the card each op's sums are held to alu_ref
+    within vp.alu_rtol (rel_err)."""
+    rows = {}
+    for dtype, ops in vp.ALU_OPS.items():
+        dt = "f32" if dtype == torch.float32 else "f64"
+        for op in ops:
+            for u in vp.ALU_U.get(op, (8,)):
+                if device.type == "cuda":
+                    blocks = vp.alu_blocks(op, dtype, u, device)
+                    threads = blocks * vp.ALU_THREADS
+                    fn = (lambda: vp.alu_cuda(op, dtype, u, r, vp.ALU_UNROLL,
+                                              device))
+                else:
+                    threads = CPU_THREADS
+                    fn = (lambda: vp.alu_ref(op, dtype, u, r, vp.ALU_UNROLL,
+                                             threads, device))
+                ms, got = timed(fn, device, reps)
+                ops_n = threads * u * r * vp.ALU_UNROLL
+                rate = ops_n / (ms * 1e-3)
+                key = f"{dt}_{op}_u{u}"
+                rows[key] = {"dtype": dt, "op": op, "u": u,
+                             "threads": threads, "ms": ms, "ops": ops_n,
+                             "ops_per_s": rate}
+                if device.type == "cuda":
+                    want = vp.alu_ref(op, dtype, u, r, vp.ALU_UNROLL,
+                                      vp.ALU_PERIOD, device)[
+                        torch.arange(threads, device=device) % vp.ALU_PERIOD]
+                    err = ((got - want).abs() / want.abs()).max().item()
+                    rows[key]["rel_err"] = err
+                    if not (torch.isfinite(got).all()
+                            and err <= vp.alu_rtol(op, dtype)):
+                        _mismatch(res, f"alu {key}: relative error {err:.3g}")
+                _say(f"alu {dt} {op:7s} u={u:2d}: {rate / 1e12:.4f} T ops/s "
+                     f"({ms:.4f} ms, {threads} threads) [{card}]")
+    return rows
+
+
+def smem_costs(device, card, steps, res, reps=5):
+    """P3 in f64 at K3's headline chunk, each mode with and without the
+    pad: ms and ns per warp access of one SM (one block an SM).  On the
+    card each output is held bitwise to smem_ref."""
+    rows = {}
+    on_card = device.type == "cuda"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if on_card else 1
+    chunk = vp.headline_chunk(sms) if on_card else CPU_SMEM_CHUNK
+    k = chunk // vp.ROW_THREADS
+    for mode in vp.SMEM_MODES:
+        w = vp.smem_rows(mode)
+        want = (vp.smem_ref(mode, torch.float64, chunk, steps, sms, device)
+                if on_card else None)
+        for pad in (True, False):
+            if on_card:
+                fn = (lambda: vp.smem_cuda(mode, pad, chunk, steps,
+                                           device=device))
+            else:
+                fn = (lambda: vp.smem_ref(mode, torch.float64, chunk, steps,
+                                          1, device))
+            ms, got = timed(fn, device, reps)
+            key = f"{mode}_{'pad' if pad else 'nopad'}"
+            if on_card and not torch.equal(got, want):
+                _mismatch(res, f"smem {key}")
+            accesses = (vp.ROW_THREADS // 32) * steps * (k // w)
+            ns = ms * 1e6 / accesses
+            rows[key] = {
+                "mode": mode, "pad": pad, "chunk": chunk, "steps": steps,
+                "ms": ms, "warp_accesses_an_sm": accesses,
+                "ns_per_warp_access": ns}
+            _say(f"smem {mode} {'pad  ' if pad else 'nopad'} (chunk {chunk}, "
+                 f"f64): {ns:.4f} ns per warp access an SM ({ms:.4f} ms) "
+                 f"[{card}]")
+    return rows
+
+
+def overlap(device, card, shape, iters_list, res, reps=5):
+    """P4: the chains alone, the stores alone, both, at each chain length;
+    the overlap fraction at each.  On the card each output is held
+    bitwise to overlap_ref."""
+    n, m = shape
+    on_card = device.type == "cuda"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if on_card else 132
+    out = (torch.empty((m, n), device=device),
+           torch.empty((m, n), device=device)) if on_card else None
+    rows = {}
+    for iters in iters_list:
+        t = {}
+        for name, alu, store in (("chains", True, False),
+                                 ("stores", False, True),
+                                 ("both", True, True)):
+            if on_card:
+                fn = (lambda: vp.overlap_cuda(m, n, iters, alu, store, device,
+                                              out if store else None))
+            else:
+                fn = (lambda: vp.overlap_ref(m, n, iters if alu else 0, store,
+                                             device=device))
+            t[name], got = timed(fn, device, reps)
+            if on_card:
+                want = vp.overlap_ref(m, n, iters if alu else 0, store, sms,
+                                      device)
+                if not all(torch.equal(g, w) for g, w in zip(
+                        got if store else [got], want if store else [want])):
+                    _mismatch(res, f"overlap {iters} {name}")
+                del want
+            del got
+        frac = ((t["chains"] + t["stores"] - t["both"])
+                / min(t["chains"], t["stores"]))
+        rows[str(iters)] = {"iters": iters, **{f"{k}_ms": v
+                                               for k, v in t.items()},
+                            "fraction": frac}
+        _say(f"overlap (n, m) = ({n}, {m}), {iters} FMA steps a column: "
+             f"chains {t['chains']:.4f} ms, stores {t['stores']:.4f} ms, "
+             f"both {t['both']:.4f} ms: overlap fraction {frac:.4f} [{card}]")
+    del out
+    return rows
+
+
+# P2's and P4's kernels in the compiled library, by their mangled names,
+# and the instruction that marks one step of each: the step's own FMA,
+# multiply or shuffle; the hardware reciprocal each divide starts from
+# (and f64 log and log_pos, whose reductions divide); for logf, whose
+# polynomial has no hardware seed, the conversion of its exponent to f32.
+# The unrolled loop holds ALU_UNROLL x u steps (P4: 8 x 4 chains); a
+# double shuffle is two 32-bit ones.
+_KERNEL = re.compile(r"(alu_kernelI([fd])Li(\d+)ELi(\d+)EE|"
+                     r"overlap_kernelILb([01])ELb([01])EE)")
+_OP_NAMES = {code: op for op, code in vp.OP_CODES.items()}
+SASS_MARKS = {("f", "fma"): "FFMA", ("f", "mul"): "FMUL",
+              ("f", "log"): "I2FP.F32.S32", ("f", "recip"): "MUFU.RCP",
+              ("f", "div"): "MUFU.RCP", ("f", "roll"): "SHFL.IDX",
+              ("d", "fma"): "DFMA", ("d", "mul"): "DMUL",
+              ("d", "div_pos"): "MUFU.RCP64H", ("d", "log_pos"): "MUFU.RCP64H",
+              ("d", "div"): "MUFU.RCP64H", ("d", "log"): "MUFU.RCP64H",
+              ("d", "shfl"): "SHFL.UP", "overlap": "DFMA"}
+_SASS_OP = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes(text: str) -> dict:
+    """{function name: Counter of opcodes} of cuobjdump -sass output."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            cur = funcs.setdefault(line.split("Function : ", 1)[1].strip(),
+                                   Counter())
+            continue
+        hit = _SASS_OP.match(line)
+        if hit and cur is not None:
+            cur[hit.group(1)] += 1
+    return funcs
+
+
+def _count(ops: Counter, mark: str) -> int:
+    return sum(c for op, c in ops.items()
+               if op == mark or op.startswith(mark + "."))
+
+
+def compiled_work(text: str):
+    """Each P2 / P4 kernel's count of its step's mark (SASS_MARKS) in the
+    cuobjdump -sass ``text`` against the steps of its unrolled loop:
+    ({kernel: {"mark", "count", "need"}}, [shortfalls])."""
+    rows, short = {}, []
+    for name, ops in sass_opcodes(text).items():
+        hit = _KERNEL.search(name)
+        if not hit:
+            continue
+        if hit.group(2):
+            t, op, u = hit.group(2), _OP_NAMES[int(hit.group(3))], \
+                int(hit.group(4))
+            key = f"alu_{'f32' if t == 'f' else 'f64'}_{op}_u{u}"
+            mark = SASS_MARKS[(t, op)]
+            need = vp.ALU_UNROLL * u * (2 if op == "shfl" else 1)
+        else:
+            if hit.group(5) == "0":          # the stores alone: no chain
+                continue
+            key = f"overlap_store{hit.group(6)}"
+            mark, need = SASS_MARKS["overlap"], 8 * 4
+        rows[key] = {"mark": mark, "count": _count(ops, mark), "need": need}
+        if rows[key]["count"] < need:
+            short.append(f"sass {key}: {rows[key]['count']} {mark} < {need}")
+    want = {f"alu_{'f32' if d == torch.float32 else 'f64'}_{op}_u{u}"
+            for d, ops in vp.ALU_OPS.items() for op in ops
+            for u in vp.ALU_U.get(op, (8,))} | {"overlap_store0",
+                                                 "overlap_store1"}
+    short += [f"sass {k}: not in the library" for k in sorted(want - set(rows))]
+    return rows, short
+
+
+def sass_check(device):
+    """compiled_work() of the probes' library (cuobjdump -sass beside
+    nvcc); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    dump = Path(_nvcc.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(dump), "-sass", str(vp.build()["vpu_probe"])],
+                          capture_output=True, text=True, check=True).stdout
+    rows, short = compiled_work(text)
+    return {"kernels": rows, "short": short}
+
+
+def floors(res):
+    """The write, issue and combined floors of K1-K3 from the readings."""
+    alu = res["alu"]
+    r_fma = max(v["ops_per_s"] for k, v in alu.items()
+                if k.startswith("f64_fma_"))
+    r_div = alu["f64_div_pos_u8"]["ops_per_s"]
+    r_log = alu["f64_log_pos_u8"]["ops_per_s"]
+    # the div_pos and log_pos probes' steps each carry one add (x + 1,
+    # + 1.54), priced at the FMA rate and taken off
+    cell_s = {kern: (cnt - 3) / r_fma + 2 / r_div + 1 / r_log
+              for kern, cnt in CELL_F64.items()}
+    full = res["write"]["full"]
+    write_bps = full["bytes"] / (full["ms"] * 1e-3)
+    ov = min(res["overlap"].values(),
+             key=lambda x: abs(x["chains_ms"] - x["stores_ms"]))
+    f = ov["fraction"]               # impossible() bounds it, unclamped here
+    g, n1, m1 = K1_SHAPE
+    shapes = [("K1", g * n1 * m1, None), ("K2", K2_SHAPE[0] * K2_SHAPE[1],
+                                          None)]
+    for n, m in K3_SHAPES:
+        shapes.append(("K3", n * m, n))
+    rows = {}
+    for kern, cells, n in shapes:
+        piece = next((v for v in res["write"].values()
+                      if v["mode"] == "piecewise" and v["n"] == n), None)
+        w_ms = (piece["ms"] * cells / (piece["n"] * piece["m"]) if piece
+                else 8 * cells / write_bps * 1e3)
+        i_ms = cells * cell_s[kern] * 1e3
+        both = max(w_ms, i_ms) + (1 - f) * min(w_ms, i_ms)
+        key = kern if n is None else f"{kern}_{n}"
+        rows[key] = {"cells": cells, "write_floor_ms": w_ms,
+                     "write_from": "piecewise" if piece else "full",
+                     "issue_floor_ms": i_ms, "floor_ms": both,
+                     "cell_ns": cell_s[kern] * 1e9}
+    return {"f64_fma_per_s": r_fma, "f64_div_pos_per_s": r_div,
+            "f64_log_pos_per_s": r_log, "write_Bps": write_bps,
+            "overlap_fraction": f, "overlap_iters": ov["iters"],
+            "kernels": rows}
+
+
+def impossible(res):
+    """The readings that cannot stand: a byte rate over the device
+    memory's or an op rate over the FMA rate of its type (PLAUSIBLE x the
+    data sheet), an overlap fraction outside OVERLAP_RANGE, a timed
+    output unequal to its plain version, a kernel whose compiled code
+    lacks its steps."""
+    bad = []
+    for k, v in res["write"].items():
+        if v["GBps"] * 1e9 > PLAUSIBLE * HBM_BPS:
+            bad.append(f"write {k}: {v['GBps']:.1f} GB/s")
+    for k, v in res["alu"].items():
+        peak = PEAK_OPS[torch.float32 if v["dtype"] == "f32"
+                        else torch.float64]
+        if v["ops_per_s"] > PLAUSIBLE * peak:
+            bad.append(f"alu {k}: {v['ops_per_s']:.4g} ops/s")
+    n, m = res["overlap_shape"]
+    lo, hi = OVERLAP_RANGE
+    for k, v in res["overlap"].items():
+        for part in ("stores", "both"):
+            bps = 2 * 4 * n * m / (v[f"{part}_ms"] * 1e-3)
+            if bps > PLAUSIBLE * HBM_BPS:
+                bad.append(f"overlap {k} {part}: {bps / 1e9:.1f} GB/s")
+        if not lo <= v["fraction"] <= hi:
+            bad.append(f"overlap {k}: fraction {v['fraction']:.4f} outside "
+                       f"[{lo}, {hi}]")
+    bad += res.get("mismatch", [])
+    if res.get("sass"):
+        bad += res["sass"]["short"]
+    return bad
+
+
+def clocks_under_load(device, fn, reps=200):
+    """nvidia-smi's SM clock and its maximum, MHz, sampled while ``reps``
+    calls of ``fn`` run on the card."""
+    if device.type != "cuda":
+        return None
+    for _ in range(reps):
+        fn()
+    smi = _smi(device, "clocks.sm,clocks.max.sm")
+    torch.cuda.synchronize(device)
+    sm, top = (int(x.split()[0]) for x in smi.split(","))
+    return {"sm_mhz": sm, "max_sm_mhz": top}
+
+
+def run(device, card, sizes):
+    """Every measurement at ``sizes`` (SIZES[...]); the readings, the
+    floors, and on the card the checks that impossible() reads."""
+    res = {"device": card, "torch": torch.__version__}
+    res["sass"] = sass_check(device)
+    res["write"] = write_floors(device, card, sizes["write"], res)
+    res["alu"] = alu_rates(device, card, sizes["alu_r"], res)
+    res["clocks_sm_under_load"] = clocks_under_load(device, lambda: vp.alu_cuda(
+        "fma", torch.float64, 8, sizes["alu_r"], vp.ALU_UNROLL,
+        device=device))
+    res["smem"] = smem_costs(device, card, sizes["smem_steps"], res)
+    res["overlap_shape"] = list(sizes["overlap_shape"])
+    res["overlap"] = overlap(device, card, sizes["overlap_shape"],
+                             sizes["overlap_iters"], res)
+    res["floors"] = floors(res)
+    for kern, f in res["floors"]["kernels"].items():
+        _say(f"{kern}: write floor {f['write_floor_ms']:.4f} ms "
+             f"({f['write_from']}), issue floor {f['issue_floor_ms']:.4f} ms "
+             f"({f['cell_ns'] * 1e3:.4f} ps a cell), with the overlap "
+             f"{f['floor_ms']:.4f} ms [{card}]")
+    clk = res["clocks_sm_under_load"]
+    if clk:
+        _say(f"SM clock under load {clk['sm_mhz']} MHz of "
+             f"{clk['max_sm_mhz']} [{card}]")
+    if res["sass"]:
+        _say("compiled steps (mark: count / need): " + ", ".join(
+            f"{k} {v['mark']} {v['count']}/{v['need']}"
+            for k, v in sorted(res["sass"]["kernels"].items())))
+    return res
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("vpu_probe_torch: --device cuda but no CUDA "
+                             "device")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    card = card_label(device)
+    _say(f"# vpu_probe_torch device={device} [{card}] torch "
+         f"{torch.__version__} cuda {torch.version.cuda}")
+    res = run(device, card, SIZES["cuda" if device.type == "cuda"
+                                  else "cpu"])
+    print(json.dumps(res), flush=True)
+    bad = impossible(res) if device.type == "cuda" else []
+    if bad:
+        raise SystemExit("vpu_probe_torch: readings above the data sheet "
+                         f"(work removed?): {bad}")
+    return res
+
+
+if __name__ == "__main__":
+    main()
