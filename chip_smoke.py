@@ -171,7 +171,17 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      fraction outside [-0.05, 1.05] fails the run; (c) K1-K3's time
      against each floor: the data sheet's bound(), the measured write
      floor, the measured issue floor and the two combined by the measured
-     overlap; the outputs freed at the end.
+     overlap; the outputs freed at the end.  P5 (mix, staged) and every
+     rung of P6's ladder (from K3's memory mix step by step to K3's
+     structure) are held to their plain versions in 19a at the same small
+     shapes and in 19b at K3's two shapes (bitwise; where div_pos /
+     log_pos are in play the f64 sinks within 1e-12 relative and the f32
+     tables within one f32 ulp), each rung's SASS mark counted against the
+     rung before; 19b fails on a rung faster than the rung before it by
+     more than the noise or than P1 piecewise; 19c prints the ladder, us a
+     column, beside K3's own time from 6c (the ladder's times, K3's beside
+     it and P1 piecewise's there are each call's device time, queued
+     behind a spin so that the events hold no host work).
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
@@ -2390,7 +2400,9 @@ def phase18_tools(dev, sc, agrid, stirling, pyp, card):
 PROBE_REPLACES = {"write_floor": "tools/vpu_probe.py:93",
                   "alu": "tools/vpu_probe.py:166",
                   "smem": "tools/vpu_probe.py:232",
-                  "overlap": "tools/vpu_probe.py:375"}
+                  "overlap": "tools/vpu_probe.py:375",
+                  "mix": "tools/vpu_probe.py:331",
+                  "bisect": "tools/vpu_probe.py:476"}
 # 19a's (n, m): a last chunk cut short (40000 rows: 78 chunks of 512 and 64
 # rows), and chunks in two waves (2^21 rows: 228 chunks of 9216, 132 SMs)
 PROBE_SHAPES = ((40000, 9), (1 << 21, 4))
@@ -2454,6 +2466,26 @@ def check_probes(dev, vp):
                 check(torch.equal(got, want),
                       f"19a: smem {mode} pad {pad} chunk {chunk} differs "
                       "from its plain version")
+    a32 = torch.full((1,), vp.A_SMEM, device=dev)
+    for n, m in PROBE_SHAPES:
+        # short pieces only where the piece table fits beside the pair
+        for piece in PROBE_PIECES if n < (1 << 20) else (None,):
+            piece = piece or vp.PIECE
+            want = vp.mix_ref(m, n, piece=piece, sms=sms, device=dev)
+            for mode in vp.MIX_MODES:
+                got = vp.mix_cuda(m, n, mode, piece, device=dev)
+                err, ok = vp.mix_errors(got, want)
+                check(ok, f"19a: mix {mode} (piece {piece}) at {(n, m)} "
+                          "differs from its plain version")
+                errs["mix"] = max(errs["mix"], err)
+            for steps in vp.ladder():
+                got = vp.bisect_cuda(m, n, steps, piece, a32, device=dev)
+                want = vp.bisect_ref(m, n, steps, piece=piece, sms=sms,
+                                     device=dev)
+                err, ok = vp.mix_errors(got, want, steps)
+                check(ok, f"19a: bisect {steps[-1]} (piece {piece}) at "
+                          f"{(n, m)}: largest difference {err:.3g}")
+                errs["bisect"] = max(errs["bisect"], err)
     return errs, rel
 
 
@@ -2469,7 +2501,9 @@ def phase19_probes(dev, vp, card, fills):
     t0 = phase("19a the probes (csrc/vpu_probe.cu) vs their plain versions")
     errs, rel = check_probes(dev, vp)
     print("   write_floor, smem, overlap bitwise equal; alu relative errors: "
-          + ", ".join(f"{k} {e:.3g}" for k, e in rel.items()))
+          + ", ".join(f"{k} {e:.3g}" for k, e in rel.items())
+          + f"; mix bitwise, bisect's ladder within its tolerance (largest "
+          f"difference {errs['bisect']:.3g})")
     done(t0)
 
     t0 = phase("19b tools/vpu_probe_torch.py at full size")
@@ -2501,6 +2535,9 @@ def phase19_probes(dev, vp, card, fills):
           f"{fl['kernels']['K1']['issue_floor_ms']:.4f} ms; overlap "
           f"fraction {fl['overlap_fraction']:.4f} (at "
           f"{fl['overlap_iters']} FMA steps a column)")
+    print("   ladder marks (count / the rung before / need): " + ", ".join(
+        f"{k} {v['count']}/{v['before']}/+{v['need']}"
+        for k, v in res["sass"]["ladder"].items()))
     print(f"   launches in phase 19b: {launches}")
     done(t0)
 
@@ -2572,6 +2609,36 @@ def phase19_probes(dev, vp, card, fills):
         "plain_ms": plain, "bound_ms": max(b_ms, o_ms),
         "bound_by": "bytes" if b_ms >= o_ms else "operations",
         "library_ms": None, "library": none}
+    # P5 / P6 at (2^16, 1024), the shape whose per-column time the ladder
+    # splits: P5's bound its bytes, P6's top rung's the larger of its bytes
+    # and its f64 operations (tool.ladder_flops)
+    n, m = tool.K3_SHAPES[1]
+    lad = res["ladder"][str(n)]
+    k = lad["chunk"] // vp.ROW_THREADS
+    top_steps = vp.ladder()[-1]
+    b_ms = 2 * 4 * m * n / HBM_BPS * 1e3
+    o_ms = tool.ladder_flops(top_steps, k) * m * n / F64_FLOPS * 1e3
+    for name, row, bnd, by in (
+            ("mix", lad["rungs"]["mix"], b_ms, "bytes"),
+            ("bisect", lad["rungs"][top_steps[-1]], max(b_ms, o_ms),
+             "bytes" if b_ms >= o_ms else "operations")):
+        probes[name] = {
+            "max_abs_err": max(errs[name], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": None,
+            "library": "no PyTorch call computes the column recurrence"}
+    for key, sh in res["ladder"].items():
+        k3_6c = fills[f"K3_{key}"]
+        print(f"   ladder at ({sh['n']}, {sh['m']}), us a column (+ over the "
+              f"rung before): {tool.ladder_summary(sh)}")
+        print(f"   K3 at ({sh['n']}, {sh['m']}): {k3_6c:.4f} ms a call in "
+              f"6c = {k3_6c * 1e3 / sh['m']:.4f} us a column; beside the "
+              f"ladder its device time {sh['k3_ms']:.4f} ms a call (host "
+              f"gap {sh['k3_host_ms']:.4f} ms); the top rung's "
+              f"{sh['rungs'][top_steps[-1]]['ms']:.4f} ms is "
+              f"{100 * sh['top_share']:.2f}% of K3's device time, "
+              f"{100 * sh['rungs'][top_steps[-1]]['ms'] / k3_6c:.2f}% of "
+              f"6c's call [{card}]")
     for name, p in probes.items():
         print(f"   {name}: {p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
               f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}), library "

@@ -56,6 +56,53 @@
 //    K3's does twice a column.  Variants: the chains alone (the sums go to a
 //    per-thread sink), the stores alone (no chain), both.  Bound by the
 //    larger of the two, if the card overlaps them.
+// P5 mix (replaces tools/vpu_probe.py:mix_floor).  K3's memory mix with
+//    next to no arithmetic, in K3's residency: cols_plan's chunks, one block
+//    of 16 row warps a chunk for all m columns, thread l of warp w owning
+//    k = chunk / 512 consecutive rows, their state f64 in dynamic shared
+//    memory at K3's vslot.  Per column each thread moves its rows' state
+//    on, out = state 0.999 + acc_p (acc_p: P1 piecewise's piece values, f32;
+//    the rounded multiply and add of the plain version, no FMA), and the
+//    warp stores the column, V = out and Srel = out + 1 in f32, one row a
+//    lane (rows 32 apart, read back from the state: K3's transpose), as K3's
+//    store pass does.  ``staged``: the column goes to a staging area in
+//    shared memory instead and, after a barrier, one thread copies it whole
+//    to each table with one bulk copy (cp.async.bulk, the Tensor Memory
+//    Accelerator's linear copy), completed (its reads) before the area is
+//    reused: the counterpart of the TPU's whole-block copy.  Bound by the
+//    bytes written, as K3's store pattern (P1 piecewise) is.
+// P6 bisect (replaces tools/vpu_probe.py:bisect_probe).  P5's mix with one
+//    template flag a step of a ladder from the mix to K3
+//    (ops/vpu_probe_cuda.py: BISECT_STEPS), each rung adding one step:
+//    first the TPU probe's own flags on the card, smem (the discount a
+//    scalar read from device memory, added to the column's acc_0 as the
+//    TPU's 0.5), xscratch (K3's Srel Kahan pair, two more f64 a row in
+//    shared memory: K3's 24.5 bytes a row, moved on by V each column and
+//    its sum written to a sink), initbranch (a first pass over each chunk
+//    that sets the state to 1 / (rvec - 0.5), rvec the TPU's transposed
+//    row index, and stores V = inf, Srel = 0 over column 0 before the loop
+//    overwrites it), vcarry (the pieces' acc decaying x 0.9999 with no
+//    + 1e-5, and two carried sums w1, w2 of each thread's first and last
+//    row, written to a sink); the TPU flag ``cost`` (XLA's CostEstimate, a
+//    scheduling hint) has no counterpart in a hand-written launch.  Then
+//    K3's own structure (fill_table_cols.cu): barriers (its two named
+//    barriers a column, with the 17th, carry warp present), scan (each
+//    row's map (A, B) = (0.5, (1 - A) out), composed over a thread's rows,
+//    one 5-step shuffle scan over the warp, and the rows replayed from the
+//    value entering them: V_r = A V_{r-1} + B, a running average of the mix
+//    down the warp's segment), div_pos (A = div_pos(1, 2 + |state|),
+//    row_walk.cuh's divide, as row_map), log_pos (Srel the Kahan sum of
+//    log_pos|V| along the columns, as K3's store_row), handoff (chunks
+//    claimed by an atomic ticket; the carry warp polls a NaN-filled halo
+//    for the V that enters the chunk, scans the 16 warps' maps, publishes
+//    the chunk's last V and hands each warp the maps before it: the
+//    average runs down the whole column, chunk c one hop behind chunk
+//    c-1).  Every multiply and add is rounded as the plain version's.
+//    Bound, as K3: by the bytes written for the first rungs; with the
+//    scan, at many rows a thread by the f64 work a row issues (the
+//    composition, the replay, the divide, the log), at one row a thread
+//    by the latency of each column's chain (scan, barriers, log, hand-off),
+//    which is what the rungs' increments measure.
 //
 // Every probe launches on the caller's stream and returns its
 // cudaGetLastError() as int.
@@ -67,7 +114,9 @@
 namespace {
 
 using row_walk::div_pos;
+using row_walk::load_relaxed;
 using row_walk::log_pos;
+using row_walk::store_relaxed;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowWarps = 16;               // K3's row warps
@@ -402,6 +451,362 @@ overlap_kernel(float* __restrict__ v, float* __restrict__ s,
     sink[blockIdx.x * kRowThreads + threadIdx.x] = total;
 }
 
+// -- P5 / P6: K3's column mix, and the ladder from it to K3 -------------------
+
+// the steps of P6's ladder as template bits, in the ladder's order
+enum LadderStep : int {
+  kStSmem = 1, kStXscratch = 2, kStInit = 4, kStVcarry = 8, kStBars = 16,
+  kStScan = 32, kStDivPos = 64, kStLogPos = 128, kStHandoff = 256
+};
+constexpr int kBarMaps = 1, kBarCarry = 2;  // K3's named barriers
+constexpr double kTiny = 1e-300;            // log_pos's floor for |V|
+
+// K3's named barrier ``id`` over the row warps and the carry warp
+__device__ __forceinline__ void bar(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kCarryThreads) : "memory");
+}
+
+struct Map {                                // x -> A x + B
+  double A, B;
+};
+
+// ``first`` applied first, then ``then``
+__device__ __forceinline__ Map after(Map first, Map then) {
+  return {mul_rn(then.A, first.A), add_rn(mul_rn(then.A, first.B), then.B)};
+}
+
+// inclusive scan over the first kLanes lanes (K3's warp_scan)
+template <int kLanes = 32>
+__device__ __forceinline__ Map scan_maps(Map x, int lane) {
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+    const double pa = __shfl_up_sync(kFull, x.A, off);
+    const double pb = __shfl_up_sync(kFull, x.B, off);
+    if (lane >= off) x = after({pa, pb}, x);
+  }
+  return x;
+}
+
+// where row i of the chunk keeps its state: one pad double every 16 rows
+__device__ __forceinline__ int vslot(int i) { return i + (i >> 4); }
+
+// a bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// from shared to device memory, and its group's commit and waits
+__device__ __forceinline__ void bulk_store(float* gmem, const float* smem,
+                                           int bytes) {
+  const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(gmem), "r"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {   // sources read
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {        // copies complete
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// the threads' shared-memory writes, made visible to the bulk copy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Dynamic shared memory, per block: the row state at vslot(i) (chunk +
+// chunk / 16 f64), with xscratch the Kahan pair (chunk f64 each), the piece
+// table (7 x pieces f32, padded to 16 bytes), with staged the staging area
+// (chunk f32 of V, then chunk of Srel).  Scratch from the wrapper: wsink
+// [chunks][512][2] f64 (vcarry), xsink [n] f64 (xscratch), and for the
+// hand-off the halo [chunks-1][m] f64 filled with NaN and the ticket, one
+// zeroed int32.
+template <int kSteps, bool kStaged>
+__global__ void __launch_bounds__(kCarryThreads, 1)
+mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
+           float* __restrict__ s, double* __restrict__ wsink,
+           double* __restrict__ xsink, double* halo, int* ticket, int n,
+           int m, int chunk, int chunks, int piece, int pieces, int slab) {
+  constexpr bool kA = kSteps & kStSmem;
+  constexpr bool kX = kSteps & kStXscratch;
+  constexpr bool kI = kSteps & kStInit;
+  constexpr bool kV = kSteps & kStVcarry;
+  constexpr bool kB = kSteps & kStBars;
+  constexpr bool kS = kSteps & kStScan;
+  constexpr bool kD = kSteps & kStDivPos;
+  constexpr bool kL = kSteps & kStLogPos;
+  constexpr bool kH = kSteps & kStHandoff;
+  static_assert(!kStaged || kSteps == 0, "staged: P5 alone");
+  static_assert(!kH || (kB && kS), "the hand-off needs the carry warp and "
+                                   "the scan");
+  extern __shared__ __align__(16) double dyn[];
+  __shared__ double wA[kRowWarps], wB[kRowWarps];   // the warps' maps
+  __shared__ double xA[kRowWarps], xB[kRowWarps];   // the maps before each
+  __shared__ double cin;                            // V entering the chunk
+  __shared__ int next;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;          // kRowWarps: the carry warp
+  const int seg = chunk / kRowWarps;          // rows a warp
+  const int k = seg / 32;                     // rows a thread
+  const int w0 = warp * seg;                  // this warp's first row
+  const int t0 = w0 + lane * k;               // this thread's first row
+  double* st = dyn;
+  double* sacc = dyn + vslot(chunk);
+  double* scomp = sacc + chunk;
+  float* tab = reinterpret_cast<float*>(sacc + (kX ? 2 * chunk : 0));
+  float* stage = tab + ((7 * pieces + 3) & ~3);
+
+  // the piece values of the 7 column residues: acc_0 = 1 + t (+ a),
+  // acc_{p+1} = acc_p 0.9999 + 1e-5 (one f32 FMA) or, vcarry, acc_p 0.9999
+  if (threadIdx.x < 7) {
+    float acc = 1.0f + static_cast<float>(threadIdx.x);
+    if (kA) acc = __fadd_rn(acc, *a_ptr);
+    for (int p = 0; p < pieces; ++p) {
+      tab[threadIdx.x * pieces + p] = acc;
+      acc = kV ? __fmul_rn(acc, 0.9999f) : fmaf(acc, 0.9999f, 1e-5f);
+    }
+  }
+  const int hs = (n + slab - 1) / slab;       // the TPU's H, rounded up
+
+  for (int it = 0;; ++it) {
+    __syncthreads();                  // the last chunk's state is read
+    int c = blockIdx.x + it * gridDim.x;
+    if (kH) {                         // chunks in row order, by ticket
+      if (threadIdx.x == 0) next = atomicAdd(ticket, 1);
+      __syncthreads();
+      c = next;
+    }
+    if (c >= chunks) break;
+    const int R0 = c * chunk;
+
+    // the chunk's set-up: the row state (0, or the TPU's init branch,
+    // which also writes column 0), the Kahan pair
+    for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+      const int r = R0 + i;
+      double x = 0.0;
+      if (kI) {
+        const long long rv = static_cast<long long>(r % slab) * hs + r / slab;
+        x = 1.0 / (static_cast<double>(rv) - 0.5);
+        if (r < n) {
+          v[r] = INFINITY;
+          s[r] = 0.0f;
+        }
+      }
+      st[vslot(i)] = x;
+      if (kX) {
+        sacc[i] = 0.0;
+        scomp[i] = 0.0;
+      }
+    }
+    __syncthreads();
+
+    if (kB && warp == kRowWarps) {
+      // the carry warp: with the hand-off, per column, the V entering the
+      // chunk (V at the last row of the chunk before), then the chunk's map
+      // from the warps', the chunk's last V published, and each warp the
+      // maps of the warps before it
+      const double* hin =
+          kH ? halo + static_cast<size_t>(c > 0 ? c - 1 : 0) * m : halo;
+      double* hout = kH ? halo + static_cast<size_t>(c) * m : halo;
+      for (int j = 0; j < m; ++j) {
+        double carry = 0.0;
+        if (kH && lane == 0 && c > 0) {
+          for (unsigned polls = 0;; ++polls) {
+            carry = load_relaxed(hin + j);
+            if (!isnan(carry)) break;
+            if (polls > (1u << 27)) __trap();
+            __nanosleep(64);
+          }
+        }
+        bar(kBarMaps);
+        if (kH) {
+          Map p = lane < kRowWarps ? Map{wA[lane], wB[lane]} : Map{1.0, 0.0};
+          p = scan_maps<kRowWarps>(p, lane);
+          const double ba = __shfl_sync(kFull, p.A, kRowWarps - 1);
+          const double bb = __shfl_sync(kFull, p.B, kRowWarps - 1);
+          if (lane == 0) {
+            if (c + 1 < chunks)
+              store_relaxed(hout + j, add_rn(mul_rn(ba, carry), bb));
+            cin = carry;
+          }
+          if (lane + 1 < kRowWarps) {
+            xA[lane + 1] = p.A;
+            xB[lane + 1] = p.B;
+          }
+        }
+        bar(kBarCarry);
+      }
+      continue;
+    }
+
+    // the row warps.  A thread's rows lie in at most two pieces: p0, and
+    // from its row ``brk`` on p0 + 1
+    const int p0 = (R0 + t0) / piece;
+    const int brk = (p0 + 1) * piece - (R0 + t0);
+    // row i's map in a column whose piece value is ``acc``, from its state
+    // (without the scan V = B; rows past n: the identity, V = 0 unscanned)
+    auto row = [&](int i, float acc) -> Map {
+      const double old = st[vslot(i)];
+      const double out = add_rn(mul_rn(old, 0.999), static_cast<double>(acc));
+      const bool live = R0 + i < n;
+      if (!kS) return {0.0, live ? out : 0.0};
+      const double a = kD ? div_pos(1.0, add_rn(2.0, fabs(old))) : 0.5;
+      const double b = mul_rn(add_rn(1.0, -a), out);
+      return {live ? a : 1.0, live ? b : 0.0};
+    };
+    // V and Srel of row q of the chunk in column jc, to the tables or the
+    // staging area; with xscratch the Kahan pair moved on by Srel's term
+    auto store_row = [&](int jc, int q, double val) {
+      const int r = R0 + q;
+      if (r >= n) return;
+      const double term = kL ? log_pos(fmax(fabs(val), kTiny)) : val;
+      double sum = term;
+      if (kX) {
+        const double sa = sacc[q];
+        const double y = add_rn(term, -scomp[q]);
+        const double t = add_rn(sa, y);
+        scomp[q] = add_rn(add_rn(t, -sa), -y);
+        sacc[q] = t;
+        sum = t;
+      }
+      const float fv = static_cast<float>(val);
+      const float fs = static_cast<float>(kL ? sum : add_rn(val, 1.0));
+      if (kStaged) {
+        stage[q] = fv;
+        stage[chunk + q] = fs;
+      } else {
+        const size_t o = static_cast<size_t>(jc) * n + r;
+        v[o] = fv;
+        s[o] = fs;
+      }
+    };
+    // column jc, one row a lane (the lane's row is the thread's for k = 1,
+    // whose V is in vreg)
+    auto store_column = [&](int jc, double vreg) {
+      if (kStaged) {
+        if (threadIdx.x == 0) bulk_wait_read();
+        __syncthreads();
+      }
+#pragma unroll 4
+      for (int i = 0; i < k; ++i) {
+        const int q = w0 + 32 * i + lane;
+        store_row(jc, q, k == 1 ? vreg : st[vslot(q)]);
+      }
+      if (kStaged) {
+        fence_async_shared();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          const int bytes = 4 * min(chunk, n - R0);
+          bulk_store(v + static_cast<size_t>(jc) * n + R0, stage, bytes);
+          bulk_store(s + static_cast<size_t>(jc) * n + R0, stage + chunk,
+                     bytes);
+          bulk_commit();
+        }
+      }
+    };
+
+    double vreg = 0.0, w1 = 0.0, w2 = 0.0;
+    for (int j = 0; j < m; ++j) {
+      const float* tj = tab + (j % 7) * pieces;
+      const float acc0 = tj[p0];
+      const float acc1 = brk < k ? tj[p0 + 1] : acc0;
+      // 1. with the scan: compose this thread's rows, then the warp's
+      Map m0{1.0, 0.0}, incl{1.0, 0.0};
+      if (kS) {
+        m0 = row(t0, acc0);
+        Map agg = m0;
+#pragma unroll 4
+        for (int i = 1; i < k; ++i)
+          agg = after(agg, row(t0 + i, i < brk ? acc0 : acc1));
+        incl = scan_maps(agg, lane);
+        if (kH && lane == 31) {
+          wA[warp] = incl.A;
+          wB[warp] = incl.B;
+        }
+      }
+      if (kB) bar(kBarMaps); else __syncwarp();
+
+      // 2. column j-1 to the tables
+      if (j > 0) store_column(j - 1, vreg);
+      double ea = 1.0, eb = 0.0;
+      if (kS) {
+        ea = __shfl_up_sync(kFull, incl.A, 1);
+        eb = __shfl_up_sync(kFull, incl.B, 1);
+      }
+      if (kB) bar(kBarCarry); else __syncwarp();
+
+      // 3. column j into the row state: the mix, or the rows replayed from
+      // the value entering the thread (0 at each warp's first row without
+      // the hand-off)
+      double x = 0.0;
+      if (kS) {
+        const double vw =
+            !kH ? 0.0
+            : warp == 0 ? cin : add_rn(mul_rn(xA[warp], cin), xB[warp]);
+        x = lane == 0 ? vw : add_rn(mul_rn(ea, vw), eb);
+      }
+      double first = 0.0;
+#pragma unroll 4
+      for (int i = 0; i < k; ++i) {
+        const Map mp =
+            kS && i == 0 ? m0 : row(t0 + i, i < brk ? acc0 : acc1);
+        x = kS ? add_rn(mul_rn(mp.A, x), mp.B) : mp.B;
+        st[vslot(t0 + i)] = x;
+        if (i == 0) first = x;
+      }
+      vreg = x;
+      if (kV) {
+        w1 = add_rn(mul_rn(w1, 0.999), first);
+        w2 = add_rn(mul_rn(w2, 0.999), x);
+      }
+    }
+    // 4. the last column, and the sinks
+    __syncwarp();
+    store_column(m - 1, vreg);
+    if (kV) {
+      double* w = wsink + (static_cast<size_t>(c) * kRowThreads +
+                           threadIdx.x) * 2;
+      w[0] = w1;
+      w[1] = w2;
+    }
+    if (kX) {
+      for (int i = 0; i < k; ++i) {
+        const int q = w0 + 32 * i + lane;
+        if (R0 + q < n) xsink[R0 + q] = sacc[q];
+      }
+    }
+  }
+  if (kStaged && threadIdx.x == 0) bulk_wait();
+}
+
+// the ladder's rungs: the steps' bits, each rung adding the next
+template <bool kStaged>
+const void* mix_by_steps(int steps) {
+  switch (steps) {
+#define STB_RUNG(b) \
+  case b: return reinterpret_cast<const void*>(&mix_kernel<b, kStaged>);
+    STB_RUNG(0)
+#undef STB_RUNG
+    default: break;
+  }
+  if constexpr (!kStaged) {
+    switch (steps) {
+#define STB_RUNG(b) \
+  case b: return reinterpret_cast<const void*>(&mix_kernel<b, false>);
+      STB_RUNG(1) STB_RUNG(3) STB_RUNG(7) STB_RUNG(15) STB_RUNG(31)
+      STB_RUNG(63) STB_RUNG(127) STB_RUNG(255) STB_RUNG(511)
+#undef STB_RUNG
+      default: break;
+    }
+  }
+  return nullptr;
+}
+
+// the dynamic shared memory a P5 / P6 block needs
+long long mix_smem(int steps, int staged, int chunk, int pieces) {
+  return 8LL * (chunk + chunk / 16) +
+         ((steps & kStXscratch) ? 16LL * chunk : 0) +
+         4LL * ((7LL * pieces + 3) & ~3LL) + (staged ? 8LL * chunk : 0);
+}
+
 }  // namespace
 
 extern "C" int stb_vpu_write_full(float* v, float* s, int n, int m,
@@ -511,6 +916,40 @@ extern "C" int stb_vpu_overlap(int alu, int store, float* v, float* s,
   void* args[] = {&v, &s, &sink, &n, &m, &chunk, &chunks, &iters,
                   &x0, &dx, &eps};
   err = cudaLaunchKernel(fn, dim3(blocks), dim3(kCarryThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P5 (steps 0, staged 0 or 1) and P6's rungs (steps: the bits of
+// BISECT_STEPS' first i steps, staged 0).  a: the discount (smem), wsink
+// (vcarry), xsink (xscratch), halo and ticket (handoff); ``pieces`` covers
+// the chunks' rows, ``smem`` the block's dynamic shared memory.
+extern "C" int stb_vpu_mix(int steps, int staged, const float* a, float* v,
+                           float* s, double* wsink, double* xsink,
+                           double* halo, int* ticket, int n, int m,
+                           int chunk, int chunks, int blocks, int smem,
+                           int piece, int pieces, int slab, void* stream) {
+  const void* fn = staged ? mix_by_steps<true>(steps)
+                          : mix_by_steps<false>(steps);
+  const long long rows = static_cast<long long>(chunks) * chunk;
+  if (fn == nullptr || n < 1 || m < 1 || v == nullptr || s == nullptr ||
+      chunk < kRowThreads || chunk % kRowThreads != 0 || chunks < 1 ||
+      rows < n || rows - chunk >= n || blocks < 1 || blocks > chunks ||
+      piece < 32 || piece < chunk / kRowThreads || slab < 1 ||
+      static_cast<long long>(pieces) * piece < rows ||
+      smem < mix_smem(steps, staged, chunk, pieces) || smem > 232448 ||
+      (staged && n % 4 != 0) || ((steps & kStSmem) && a == nullptr) ||
+      ((steps & kStVcarry) && wsink == nullptr) ||
+      ((steps & kStXscratch) && xsink == nullptr) ||
+      ((steps & kStHandoff) && (halo == nullptr || ticket == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = (steps & kStBars) ? kCarryThreads : kRowThreads;
+  void* args[] = {&a, &v, &s, &wsink, &xsink, &halo, &ticket, &n, &m,
+                  &chunk, &chunks, &piece, &pieces, &slab};
+  err = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

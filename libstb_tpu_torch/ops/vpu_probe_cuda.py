@@ -18,7 +18,15 @@ None computes a function of the system:
 * P3 ``smem``: K3's f64 row-state accesses in shared memory, scalar or 16
   bytes, with and without its pad, the acc recurrence a thread;
 * P4 ``overlap``: K3's residency and column loop, a dependent f64 FMA
-  chain and then the two output columns' stores, either alone or both.
+  chain and then the two output columns' stores, either alone or both;
+* P5 ``mix``: K3's memory mix in K3's residency, its f64 row state in
+  shared memory moved on by out = state 0.999 + acc_p each column and the
+  column stored one row a lane (V = out, Srel = out + 1, f32), or in
+  ``staged`` mode through a staging area and one bulk copy a table;
+* P6 ``bisect``: P5 with the steps of BISECT_STEPS, a ladder from the mix
+  to K3: the TPU probe's flags (smem, xscratch, initbranch, vcarry; its
+  ``cost`` has no counterpart) and then K3's own structure (barriers,
+  scan, div_pos, log_pos, handoff); ``ladder()`` lists its rungs.
 
 Each ``*_cuda`` wrapper checks its arguments, allocates its outputs with
 ``torch.empty`` (or takes them in ``out``), launches on the current stream
@@ -32,8 +40,11 @@ is built by ops/_nvcc.py on first use, as K1-K3's.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _nvcc
@@ -44,9 +55,12 @@ __all__ = ["PROBES", "LAUNCHES", "SOURCES", "build", "load",
            "ALU_OPS", "OP_CODES", "ALU_U", "ALU_PERIOD", "alu_rtol",
            "alu_blocks", "alu_cuda", "alu_ref", "SMEM_MODES",
            "headline_chunk", "smem_rows", "smem_cuda", "smem_ref",
-           "overlap_cuda", "overlap_ref"]
+           "overlap_cuda", "overlap_ref", "MIX_MODES", "TPU_STEPS",
+           "K3_STEPS", "BISECT_STEPS", "ladder", "steps_bits",
+           "bisect_exact", "mix_smem", "mix_plan", "mix_errors", "MixOut",
+           "mix_cuda", "mix_ref", "bisect_cuda", "bisect_ref"]
 
-PROBES = ("write_floor", "alu", "smem", "overlap")
+PROBES = ("write_floor", "alu", "smem", "overlap", "mix", "bisect")
 LAUNCHES = {name: 0 for name in PROBES}
 SOURCES = {"vpu_probe": Path(__file__).resolve().parent.parent / "csrc"
            / "vpu_probe.cu"}
@@ -83,6 +97,18 @@ SMEM_MODES = ("load1", "load8", "store1", "store8")
 ROW_THREADS = 512                       # K3's row threads (16 warps)
 SMEM_MAX = 232448                       # shared memory a block may have
 
+MIX_MODES = ("mix", "staged")
+# P6's ladder, in order: the TPU probe's flags (its ``cost``, XLA's
+# CostEstimate, has no counterpart on the card), then K3's structure
+TPU_STEPS = ("smem", "xscratch", "initbranch", "vcarry")
+K3_STEPS = ("barriers", "scan", "div_pos", "log_pos", "handoff")
+BISECT_STEPS = TPU_STEPS + K3_STEPS
+SLAB = 32 * 128                         # the TPU probe's (S, 128) slab, S = 32
+A_SMEM = 0.5                            # the TPU probe's scalar operand
+TINY = 1e-300                           # log_pos's floor for |V|
+# a P5 / P6 block's static shared memory, kept free beside the dynamic
+MIX_STATIC = 1024
+
 _lib = None
 
 
@@ -104,7 +130,8 @@ def load():
                  [i, i, i, ctypes.POINTER(ctypes.c_int)]),
                 ("stb_vpu_alu", [i, i, i, p, d, d, d, d, i, i, p]),
                 ("stb_vpu_smem", [i, i, p, d, i, i, i, p]),
-                ("stb_vpu_overlap", [i, i, p, p, p] + [i] * 7 + [d, d, d, p])):
+                ("stb_vpu_overlap", [i, i, p, p, p] + [i] * 7 + [d, d, d, p]),
+                ("stb_vpu_mix", [i, i] + [p] * 7 + [i] * 9 + [p])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         _lib = lib
@@ -409,3 +436,311 @@ def overlap_cuda(m: int, n: int, iters: int = 128, alu: bool = True,
             ptr(v), ptr(s), ptr(sink), n, m, plan.chunk, plan.chunks,
             plan.blocks, plan.smem, iters if alu else 0, X0, DX, EPS)
     return (v, s) if store else sink
+
+
+# -- P5 / P6: K3's column mix, and the ladder from it to K3 --------------------
+
+class MixOut(NamedTuple):
+    """A P5 / P6 result: V and Srel (m, n) f32; w, the vcarry sums (w1, w2)
+    of each row thread of each chunk, (chunks x 512, 2) f64; xs, the
+    xscratch pair's sum of each row, (n,) f64.  w and xs None without
+    their step."""
+    v: torch.Tensor
+    srel: torch.Tensor
+    w: Optional[torch.Tensor]
+    xs: Optional[torch.Tensor]
+
+
+def ladder() -> list:
+    """P6's rungs in order, each the rung before it and one more step:
+    BISECT_STEPS[:i] for i = 1..9 (P5's mix, no step, comes first)."""
+    return [BISECT_STEPS[:i] for i in range(1, len(BISECT_STEPS) + 1)]
+
+
+def _steps(fn: str, steps) -> tuple:
+    steps = tuple(steps)
+    if len(set(steps)) != len(steps) or not set(steps) <= set(BISECT_STEPS):
+        raise ValueError(f"{fn}: steps {steps}, each at most once of "
+                         f"{BISECT_STEPS}")
+    return tuple(x for x in BISECT_STEPS if x in steps)
+
+
+def steps_bits(steps) -> int:
+    """The kernel's template bits of ``steps``: bit i for BISECT_STEPS[i]."""
+    return sum(1 << BISECT_STEPS.index(x) for x in _steps("steps_bits", steps))
+
+
+def bisect_exact(steps) -> bool:
+    """Whether P6 at ``steps`` is held to its plain version bitwise: with no
+    div_pos or log_pos, each within an ulp of torch's divide and log."""
+    return not {"div_pos", "log_pos"} & set(steps)
+
+
+def mix_smem(steps, staged: bool, chunk: int, pieces: int) -> int:
+    """A P5 / P6 block's dynamic shared memory: the row state (K3's 8.5
+    bytes a row), xscratch's pair (16 more), the piece table, staged's
+    staging area (8 more)."""
+    return (8 * (chunk + chunk // 16) + (16 * chunk if "xscratch" in steps
+                                         else 0)
+            + 4 * ((7 * pieces + 3) & ~3) + (8 * chunk if staged else 0))
+
+
+def _fma32(a, b, c):
+    """a b + c rounded once to f32 (XLA's fused multiply-add on the CPU):
+    the product of two f32 is exact in f64, the sum is rounded to odd in
+    f64 from its exact error (TwoSum), and that rounds to f32 as the exact
+    sum would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, math.inf, -math.inf).to(s)
+    return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def _mix_table(pieces: int, steps):
+    """(7, pieces) f32 on the CPU: the piece values of column residue t,
+    acc_0 = 1 + t (+ A_SMEM with smem), acc_{p+1} = acc_p 0.9999 + 1e-5 as
+    one f32 FMA, or with vcarry acc_p 0.9999 rounded each step (the card's
+    arithmetic; XLA's CPU evaluation folds the chain into one rounding)."""
+    acc = 1 + torch.arange(7, dtype=torch.float32)
+    if "smem" in steps:
+        acc = acc + torch.tensor(A_SMEM, dtype=torch.float32)
+    decay = torch.tensor(0.9999, dtype=torch.float32)
+    add = torch.tensor(1e-5, dtype=torch.float32)
+    cols = [acc]
+    for _ in range(1, pieces):
+        acc = acc * decay if "vcarry" in steps else _fma32(acc, decay, add)
+        cols.append(acc)
+    return torch.stack(cols, 1)
+
+
+def _scan_lanes(a, b):
+    """Inclusive scan of the maps x -> a x + b along the last dimension, as
+    the kernel's scan_maps: entry l ends with map_l o ... o map_0 (torch
+    tensors or numpy arrays)."""
+    cat = np.concatenate if isinstance(a, np.ndarray) else torch.cat
+    off = 1
+    while off < a.shape[-1]:
+        a, b = (cat([a[..., :off], a[..., off:] * a[..., :-off]], -1),
+                cat([b[..., :off], a[..., off:] * b[..., :-off]
+                     + b[..., off:]], -1))
+        off *= 2
+    return a, b
+
+
+def _chain(a, b, k: int, chunks: int, handoff: bool):
+    """The scan step's rows in the kernel's order of operations: each
+    thread composes its k rows, each warp scans its 32 threads' maps, and
+    each thread replays its rows from the value entering it: 0 at each
+    warp's first row, or with the hand-off V above the warp (on the host,
+    in the same operations: the carry warp's scan of the 16 warps' maps,
+    the chunks' carries in order)."""
+    shape = (chunks, ROW_THREADS // 32, 32, k)
+    a, b = a.view(shape), b.view(shape)
+    ca, cb = a[..., 0], b[..., 0]
+    for i in range(1, k):
+        ca, cb = a[..., i] * ca, a[..., i] * cb + b[..., i]
+    ia, ib = _scan_lanes(ca, cb)
+    if handoff:
+        pa, pb = _scan_lanes(ia[..., 31].cpu().numpy(),
+                             ib[..., 31].cpu().numpy())
+        ta, tb = pa[:, -1], pb[:, -1]
+        carry = [ta.dtype.type(0)]
+        for c in range(1, chunks):
+            carry.append(ta[c - 1] * carry[-1] + tb[c - 1])
+        cin = np.array(carry)[:, None]
+        vw = torch.from_numpy(np.concatenate(
+            [cin, pa[:, :-1] * cin + pb[:, :-1]], 1)).to(a.device)
+    else:
+        vw = torch.zeros(ia.shape[:2], dtype=a.dtype, device=a.device)
+    vw = vw[..., None]
+    x = torch.cat([vw, ia[..., :-1] * vw + ib[..., :-1]], -1)
+    out = torch.empty_like(a)
+    for i in range(k):
+        x = a[..., i] * x + b[..., i]
+        out[..., i] = x
+    return out.reshape(-1)
+
+
+def bisect_ref(m: int, n: int, steps=(), dtype=torch.float64,
+               piece: int = PIECE, slab: int = SLAB, sms: int = 132,
+               device="cpu") -> MixOut:
+    """P6 at any combination of ``steps`` (P5 at none) on cols_plan's
+    geometry for ``sms`` SMs.  ``dtype`` is the row state's: f64 is the
+    kernel's; f32 reproduces the TPU probe as XLA evaluates it on the CPU
+    (the state step state 0.999 + acc one f32 FMA, Srel = V + 1 in f32).
+    ``slab`` is the TPU's S 128 of the init branch's transposed index
+    rvec = (r mod slab) H + r div slab, H = ceil(n / slab) (the TPU's H
+    where slab divides n); smem's scalar is A_SMEM.  Without the scan,
+    div_pos has no effect on the values (A is read by the scan alone) nor
+    has handoff; barriers never do."""
+    steps = _steps("bisect_ref", steps)
+    _check_shape("bisect_ref", n, m)
+    if piece < 32 or slab < 1:
+        raise ValueError(f"bisect_ref: piece {piece} < 32 or slab {slab} < 1")
+    has = set(steps).__contains__
+    plan = cols_plan(n, m, sms)
+    k = plan.chunk // ROW_THREADS
+    rows = plan.chunks * plan.chunk
+    r = torch.arange(rows, device=device)
+    live = r < n
+    acc_rows = _mix_table(-(-rows // piece), steps).to(device)[:, r // piece]
+    if has("initbranch"):
+        hs = -(-n // slab)
+        state = 1 / (((r % slab) * hs + r // slab).to(dtype) - 0.5)
+    else:
+        state = torch.zeros(rows, dtype=dtype, device=device)
+    decay = torch.tensor(0.999, dtype=dtype, device=device)
+    v = torch.empty((m, n), dtype=torch.float32, device=device)
+    srel = torch.empty_like(v)
+    xs = comp = torch.zeros(n, dtype=dtype, device=device)
+    w1 = w2 = torch.zeros(rows // k, dtype=dtype, device=device)
+    for j in range(m):
+        acc = acc_rows[j % 7]
+        out = (_fma32(state, decay, acc) if dtype == torch.float32
+               else state * decay + acc.to(dtype))
+        if has("scan"):
+            am = (1 / (2 + state.abs()) if has("div_pos")
+                  else torch.full_like(state, 0.5))
+            bm = (1 - am) * out
+            x = _chain(torch.where(live, am, 1.0), torch.where(live, bm, 0.0),
+                       k, plan.chunks, has("handoff"))
+        else:
+            x = torch.where(live, out, 0.0)
+        state = x
+        if has("vcarry"):
+            xt = x.view(-1, k)
+            w1, w2 = w1 * decay + xt[:, 0], w2 * decay + xt[:, -1]
+        xv = x[:n]
+        v[j] = xv.float()
+        term = torch.log(xv.abs().clamp_min(TINY)) if has("log_pos") else xv
+        if has("xscratch"):
+            y = term - comp
+            t = xs + y
+            comp, xs = (t - xs) - y, t
+            term = t
+        srel[j] = (term if has("log_pos") else xv + 1).float()
+    return MixOut(v, srel, torch.stack([w1, w2], 1) if has("vcarry") else None,
+                  xs if has("xscratch") else None)
+
+
+def mix_ref(m: int, n: int, dtype=torch.float64, piece: int = PIECE,
+            sms: int = 132, device="cpu"):
+    """P5's (V, Srel), (m, n) f32, the values of both MIX_MODES; dtype as
+    bisect_ref's."""
+    out = bisect_ref(m, n, (), dtype, piece, sms=sms, device=device)
+    return out.v, out.srel
+
+
+def mix_errors(got, want, steps=()):
+    """(largest absolute difference, within tolerance) of a P5 / P6 result
+    against its plain version, part by part: bitwise where
+    bisect_exact(steps); else the f64 sinks within alu_rtol's f64 1e-12
+    relative and the f32 tables within one f32 ulp (2^-23 relative), since
+    an f64 difference of an ulp rounds to the other f32 neighbour at a
+    tie."""
+    exact = bisect_exact(steps)
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            ok = ok and g is None and w is None
+            continue
+        ok = ok and g.shape == w.shape and g.dtype == w.dtype
+        rtol = 2.0 ** -23 if g.dtype == torch.float32 else _ALU_RTOL_DTYPE[
+            torch.float64]
+        gf, wf = g.reshape(-1), w.reshape(-1)
+        for i in range(0, gf.numel(), 1 << 26):
+            gb, wb = gf[i:i + (1 << 26)].double(), wf[i:i + (1 << 26)].double()
+            d = (gb - wb).abs()
+            err = max(err, float(d.nan_to_num(math.inf).max()))
+            if exact:
+                ok = ok and torch.equal(gb, wb)
+            else:
+                ok = ok and bool(torch.isfinite(gb).all()) and bool(
+                    (d <= rtol * wb.abs()).all())
+    return err, ok
+
+
+def mix_plan(fn: str, steps, staged: bool, m: int, n: int, piece: int,
+             sms: int):
+    """(cols_plan, pieces, shared memory) of a P5 / P6 launch on ``sms``
+    SMs; a ValueError for a shape, piece or (steps, chunk) the kernel does
+    not take: staged needs n % 4 == 0 (whole 16-byte bulk copies), and a
+    block's shared memory must fit beside MIX_STATIC."""
+    _check_shape(fn, n, m)
+    if piece < 32:
+        raise ValueError(f"{fn}: piece {piece} < 32 rows")
+    if staged and n % 4:
+        raise ValueError(f"{fn}: staged needs n % 4 == 0 (whole 16-byte "
+                         f"bulk copies), not {n}")
+    plan = cols_plan(n, m, sms)
+    pieces = -(-plan.chunks * plan.chunk // piece)
+    smem = mix_smem(steps, staged, plan.chunk, pieces)
+    if smem > SMEM_MAX - MIX_STATIC:
+        raise ValueError(f"{fn}: {' '.join(steps) or 'mix'}"
+                         f"{' staged' if staged else ''} at a chunk of "
+                         f"{plan.chunk} rows and {pieces} pieces needs "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{SMEM_MAX - MIX_STATIC}")
+    return plan, pieces, smem
+
+
+def _mix_launch(name: str, steps, staged: bool, m: int, n: int, piece: int,
+                a, device, out) -> MixOut:
+    fn = f"{name}_cuda"
+    plan, pieces, smem = mix_plan(fn, steps, staged, m, n, piece,
+                                  _sms(device))
+    has = set(steps).__contains__
+    out_v, out_s, out_w, out_x = out if out is not None else (None,) * 4
+    v = _check_out(fn, out_v, (m, n), torch.float32, device)
+    s = _check_out(fn, out_s, (m, n), torch.float32, device)
+    w = (_check_out(fn, out_w, (plan.chunks * ROW_THREADS, 2), torch.float64,
+                    device) if has("vcarry") else None)
+    xs = (_check_out(fn, out_x, (n,), torch.float64, device)
+          if has("xscratch") else None)
+    if has("smem"):
+        if a is None:
+            a = torch.full((1,), A_SMEM, dtype=torch.float32, device=device)
+        if a.device != device or a.dtype != torch.float32 or a.numel() != 1:
+            raise ValueError(f"{fn}: a must be one f32 on {device}")
+    halo = ticket = None
+    if has("handoff"):
+        halo = torch.full((plan.halo_len,), math.nan, dtype=torch.float64,
+                          device=device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    _launch(name, device, "stb_vpu_mix", steps_bits(steps), int(staged),
+            ptr(a) if has("smem") else None, v.data_ptr(), s.data_ptr(),
+            ptr(w), ptr(xs), ptr(halo), ptr(ticket), n, m, plan.chunk,
+            plan.chunks, plan.blocks, smem, piece, pieces, SLAB)
+    return MixOut(v, s, w, xs)
+
+
+def mix_cuda(m: int, n: int, mode: str = "mix", piece: int = PIECE,
+             device="cuda", out=None):
+    """Launch P5 on cols_plan's geometry; the same values as mix_ref(dtype
+    = float64).  ``out`` (V, Srel) takes the outputs' place."""
+    device = _cuda("mix_cuda", device)
+    if mode not in MIX_MODES:
+        raise ValueError(f"mix_cuda: mode {mode!r}")
+    res = _mix_launch("mix", (), mode == "staged", m, n, piece, None, device,
+                      None if out is None else (*out, None, None))
+    return res.v, res.srel
+
+
+def bisect_cuda(m: int, n: int, steps, piece: int = PIECE, a=None,
+                device="cuda", out=None) -> MixOut:
+    """Launch P6 at a rung of ladder() (the kernel is built for those);
+    the same values as bisect_ref(dtype=float64), within mix_errors'
+    tolerance.  ``a``: a buffer of one f32 on the device holding A_SMEM,
+    smem's scalar, to reuse across launches (made if None); ``out`` (V,
+    Srel, w, xs) takes the outputs' place."""
+    device = _cuda("bisect_cuda", device)
+    steps = _steps("bisect_cuda", steps)
+    if steps not in ladder():
+        raise ValueError(f"bisect_cuda: {steps} is not a rung of the "
+                         f"ladder {BISECT_STEPS}")
+    return _mix_launch("bisect", steps, False, m, n, piece, a, device, out)

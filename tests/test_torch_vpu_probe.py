@@ -12,9 +12,11 @@ kernels themselves run on a card only (marker ``cuda``); chip_smoke.py's
 phase 19 holds them to these plain versions there.
 """
 import json
+import math
 import subprocess
 import sys
 import types
+from collections import Counter
 from pathlib import Path
 
 import jax
@@ -326,6 +328,464 @@ def test_overlap_ref_chains_alone():
                                        rel=1e-6)
 
 
+# -- P5 / P6 ----------------------------------------------------------------------
+
+MIX_SHAPE = dict(m=3, h=16, s=1, u=8)   # 2048 rows in 2 pieces of 1024
+FLAG_CASES = {**{f: {f: True} for f in vp.TPU_STEPS},
+              "all": {f: True for f in vp.TPU_STEPS}}
+
+
+def _mix_kw(h=16):
+    return dict(MIX_SHAPE, h=h, k=1)
+
+
+def _port_mix(steps=(), h=16, mode="mix"):
+    """The port's f32 plain version at the JAX probe's shape: n = h s 128,
+    the TPU's sub-store of u slabs its piece, its slab s 128."""
+    m, s, u = MIX_SHAPE["m"], MIX_SHAPE["s"], MIX_SHAPE["u"]
+    return vp.bisect_ref(m, h * s * 128, steps, torch.float32,
+                         piece=u * s * 128, slab=s * 128)
+
+
+@pytest.mark.parametrize("mode", vp.MIX_MODES)
+def test_mix_matches_jax(jax_probe, mode):
+    """V and Srel exactly, both modes (staged copies the same values): the
+    state step state 0.999 + acc is one f32 FMA as XLA evaluates the
+    kernel on the CPU (test_mix_state_step_is_one_fma), acc the pieces'
+    FMA recurrence, Srel = V + 1 in f32."""
+    v, srel = jax_probe(jvp.mix_floor, mode=mode, **_mix_kw())
+    want_v, want_s = vp.mix_ref(3, 2048, torch.float32, piece=1024)
+    got = _port_mix()
+    assert torch.equal(want_v, got.v) and torch.equal(want_s, got.srel)
+    np.testing.assert_array_equal(v.reshape(3, -1), want_v.numpy())
+    np.testing.assert_array_equal(srel.reshape(3, -1), want_s.numpy())
+    assert want_v[2, 0] != want_v[2, 1024]          # the pieces differ
+
+
+@pytest.mark.parametrize("flags", list(FLAG_CASES))
+def test_bisect_matches_jax(jax_probe, flags):
+    """Each TPU flag alone and all of them, exactly (tolerance 0) at two
+    pieces a column: smem's 0.5 in acc_0, xscratch's scratch (no effect on
+    V, Srel), the init branch's 1 / (rvec - 0.5) start (its inf / 0
+    column overwritten), vcarry's acc 0.9999 decay."""
+    kw = FLAG_CASES[flags]
+    v, srel = jax_probe(jvp.bisect_probe, **_mix_kw(), **kw)
+    got = _port_mix(tuple(kw))
+    np.testing.assert_array_equal(v.reshape(3, -1), got.v.numpy())
+    np.testing.assert_array_equal(srel.reshape(3, -1), got.srel.numpy())
+    assert torch.isfinite(got.v).all()
+    if "initbranch" in kw:                      # rows differ within a piece
+        assert got.v[0, 0] != got.v[0, 1]
+    assert (got.w is not None) == ("vcarry" in kw)
+    assert (got.xs is not None) == ("xscratch" in kw)
+
+
+@pytest.mark.parametrize("others", [False, True], ids=["alone", "all"])
+def test_bisect_cost_has_no_counterpart(jax_probe, others):
+    """XLA's CostEstimate is a scheduling hint: the JAX probe with
+    cost=True equals the port without it (no step stands for it)."""
+    kw = FLAG_CASES["all"] if others else {}
+    v, srel = jax_probe(jvp.bisect_probe, cost=True, **_mix_kw(), **kw)
+    got = _port_mix(tuple(kw))
+    np.testing.assert_array_equal(v.reshape(3, -1), got.v.numpy())
+    np.testing.assert_array_equal(srel.reshape(3, -1), got.srel.numpy())
+    assert "cost" not in vp.BISECT_STEPS
+
+
+def _unfused_mix(h):
+    """The mix with the state step rounded twice (multiply, then add)."""
+    m, piece = 3, 8 * 128
+    pieces = h // 8
+    st = np.zeros(pieces, np.float32)
+    out = []
+    for j in range(m):
+        acc = [np.float32(1 + j % 7)]
+        for _ in range(pieces - 1):
+            acc.append(vp._fma32(torch.tensor(acc[-1]), torch.tensor(
+                np.float32(0.9999)), torch.tensor(np.float32(1e-5))).numpy())
+        st = (st * np.float32(0.999)).astype(np.float32) + np.array(
+            acc, np.float32)
+        out.append(np.repeat(st, piece))
+    return np.array(out)
+
+
+def test_mix_state_step_is_one_fma(jax_probe):
+    """The rule the f32 plain version follows, at four pieces, where the
+    two roundings differ: XLA's CPU evaluation of out = carry 0.999 + acc
+    is one f32 FMA (the port's _fma32), not a rounded multiply and add."""
+    v, _ = jax_probe(jvp.mix_floor, **_mix_kw(32))
+    fused = _port_mix(h=32).v.numpy()
+    unfused = _unfused_mix(32)
+    assert np.any(fused != unfused)             # the roundings differ here
+    np.testing.assert_array_equal(v.reshape(3, -1), fused)
+
+
+def test_bisect_vcarry_chain_is_folded(jax_probe):
+    """At four pieces XLA's CPU evaluation folds vcarry's acc x 0.9999 chain
+    into one rounding, acc_p = f32(c 0.9999f^p), where the port (the
+    card's arithmetic) rounds each step: V and Srel within pieces x 2^-24
+    relative (half an f32 ulp a step), and not equal."""
+    v, srel = jax_probe(jvp.bisect_probe, vcarry=True, **_mix_kw(32))
+    got = _port_mix(("vcarry",), h=32)
+    d = np.float64(np.float32(0.9999))
+    folded = np.array([[np.float32(np.float64(1 + j % 7) * d ** p)
+                        for p in range(4)] for j in range(3)])
+    per_step = vp._mix_table(4, ("vcarry",))[:3].numpy()
+    assert np.any(folded != per_step)
+    np.testing.assert_array_equal(v.reshape(3, -1)[:, 0], got.v[:, 0].numpy())
+    np.testing.assert_allclose(v.reshape(3, -1), got.v.numpy(), atol=0,
+                               rtol=4 * 2.0 ** -24)
+    np.testing.assert_allclose(srel.reshape(3, -1), got.srel.numpy(),
+                               atol=0, rtol=4 * 2.0 ** -24)
+    assert np.any(v.reshape(3, -1) != got.v.numpy())
+
+
+def test_fma32_rounds_once():
+    """_fma32 against exact rational arithmetic, at the ties where an f64
+    sum rounded again to f32 would be off (a double rounding)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(5)
+    a = rng.uniform(-4, 4, 2000).astype(np.float32)
+    b = rng.uniform(0.5, 1, 2000).astype(np.float32)
+    c = (rng.uniform(-1, 1, 2000) * 2.0 ** rng.integers(-40, 3, 2000)
+         ).astype(np.float32)
+    got = vp._fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+
+    want = []
+    for x, y, z in zip(a, b, c):
+        q = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        cands = [np.float32(float(q))]
+        cands += [np.nextafter(cands[0], np.float32(s)) for s in (-np.inf,
+                                                                   np.inf)]
+        dist = [abs(Fraction(float(t)) - q) for t in cands]
+        lo = min(dist)
+        ties = [t for t, d in zip(cands, dist) if d == lo]
+        want.append(min(ties, key=lambda t: int(t.view(np.int32)) & 1))
+    np.testing.assert_array_equal(got, np.array(want, np.float32))
+
+
+def _numpy_bisect(m, n, steps, piece, sms):
+    """P6 at a K3 rung, written out row by row in f64 with numpy: the
+    column's running average V_r = A_r V_{r-1} + B_r walked in row order
+    (restarting at 0 at each warp's first row without the hand-off), the
+    Srel Kahan pair along the columns, the vcarry sums a thread."""
+    has = set(steps).__contains__
+    plan = sc.cols_plan(n, m, sms)
+    k, seg = plan.chunk // 512, plan.chunk // 16
+    rows = plan.chunks * plan.chunk
+    r = np.arange(rows)
+    pieces = -(-rows // piece)
+    acc = np.empty((7, pieces), np.float32)
+    acc[:, 0] = (np.arange(7) + 1).astype(np.float32) + np.float32(0.5)
+    for p in range(1, pieces):
+        acc[:, p] = acc[:, p - 1] * np.float32(0.9999)      # vcarry
+    hs = -(-n // vp.SLAB)
+    st = 1.0 / (((r % vp.SLAB) * hs + r // vp.SLAB).astype(np.float64) - 0.5)
+    v = np.empty((m, n), np.float32)
+    srel = np.empty((m, n), np.float32)
+    xs = np.zeros(n)
+    comp = np.zeros(n)
+    w = np.zeros((rows // k, 2))
+    for j in range(m):
+        out = st * 0.999 + acc[j % 7][r // piece].astype(np.float64)
+        x = np.empty(rows)
+        if has("scan"):
+            a = 1 / (2 + np.abs(st)) if has("div_pos") else np.full(rows, .5)
+            b = (1 - a) * out
+            prev = 0.0
+            for i in range(rows):
+                if i >= n:
+                    x[i] = prev                     # the identity map
+                    continue
+                if i % seg == 0 and not (has("handoff") and i > 0):
+                    prev = 0.0
+                prev = x[i] = a[i] * prev + b[i]
+        else:
+            x = np.where(r < n, out, 0.0)
+        st = x
+        w[:, 0] = w[:, 0] * 0.999 + x.reshape(-1, k)[:, 0]
+        w[:, 1] = w[:, 1] * 0.999 + x.reshape(-1, k)[:, -1]
+        term = (np.log(np.maximum(np.abs(x[:n]), vp.TINY)) if has("log_pos")
+                else x[:n])
+        y = term - comp
+        t = xs + y
+        comp, xs = (t - xs) - y, t
+        v[j] = x[:n]
+        srel[j] = xs if has("log_pos") else x[:n] + 1
+    return v, srel, w, xs
+
+
+@pytest.mark.parametrize("steps", vp.ladder()[len(vp.TPU_STEPS):],
+                         ids=vp.K3_STEPS)
+def test_bisect_k3_steps_match_numpy(steps):
+    """bisect_ref's K3 steps (the kernel's order: threads' compositions,
+    warp scans, the carry warp's scan, the chunks' carries) against
+    _numpy_bisect's row order, f64, at 3000 rows on 2 SMs: 2 chunks of
+    1536 rows (the second cut short), 3 rows a thread.  The f64 sinks
+    within 1e-12 relative, the f32 tables within one f32 ulp (a
+    different order of additions rounds to the other neighbour at a tie);
+    barriers leave the values as vcarry's."""
+    m, n, sms, piece = 4, 3000, 2, 1000
+    plan = sc.cols_plan(n, m, sms)
+    assert (plan.chunk, plan.chunks) == (1536, 2)
+    got = vp.bisect_ref(m, n, steps, piece=piece, sms=sms)
+    want = _numpy_bisect(m, n, steps, piece, sms)
+    for g, w_, rtol in zip(got, want, (2.0 ** -23,) * 2 + (1e-12,) * 2):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=rtol, atol=0)
+    err, ok = vp.mix_errors(got, vp.MixOut(*(torch.from_numpy(x) for x in
+                                              want)), ("div_pos",))
+    assert ok
+    if steps[-1] == "barriers":
+        before = vp.bisect_ref(m, n, steps[:-1], piece=piece, sms=sms)
+        assert all(torch.equal(a, b) for a, b in zip(got, before))
+    if "handoff" in steps:                  # the average crosses chunks
+        cut = vp.bisect_ref(m, n, steps[:-1], piece=piece, sms=sms)
+        assert not torch.equal(got.v[:, 1536:1540], cut.v[:, 1536:1540])
+        assert torch.equal(got.v[:, :96], cut.v[:, :96])
+
+
+def test_bisect_ref_any_combination():
+    """The plain version takes any combination: div_pos and handoff
+    without the scan, and barriers, leave the values alone; log_pos
+    without xscratch makes Srel the log of |V| alone."""
+    m, n = 3, 1500
+    base = vp.bisect_ref(m, n, ("smem",))
+    for extra in (("div_pos",), ("handoff",), ("barriers",),
+                  ("div_pos", "handoff", "barriers")):
+        other = vp.bisect_ref(m, n, ("smem",) + extra)
+        assert torch.equal(base.v, other.v) and torch.equal(base.srel,
+                                                            other.srel)
+    lg = vp.bisect_ref(m, n, ("smem", "log_pos"))
+    assert torch.equal(lg.v, base.v)
+    torch.testing.assert_close(lg.srel, base.v.double().log().float(),
+                               rtol=2.0 ** -23, atol=0)
+    sc_only = vp.bisect_ref(m, n, ("scan",))
+    assert not torch.equal(sc_only.v, vp.bisect_ref(m, n).v)
+    with pytest.raises(ValueError, match="each at most once"):
+        vp.bisect_ref(m, n, ("smem", "smem"))
+    with pytest.raises(ValueError, match="each at most once"):
+        vp.bisect_ref(m, n, ("cost",))
+
+
+def test_ladder_and_bits():
+    """Nine rungs, each the one before it and one more step, in
+    BISECT_STEPS' order; each rung's bits those of its steps."""
+    rungs = vp.ladder()
+    assert len(rungs) == 9 and rungs[0] == ("smem",)
+    assert rungs[-1] == vp.BISECT_STEPS
+    for before, rung in zip(rungs, rungs[1:]):
+        assert rung[:-1] == before
+    assert [vp.steps_bits(r) for r in rungs] == [2 ** i - 1
+                                                 for i in range(1, 10)]
+    assert vp.steps_bits(("scan", "smem")) == 33
+    assert [vp.bisect_exact(r) for r in rungs] == [True] * 6 + [False] * 3
+    assert [name for name, _, _ in tool.ladder_rungs()] == (
+        ["mix"] + list(vp.BISECT_STEPS) + ["staged"])
+
+
+@pytest.mark.parametrize("steps,staged,n,fits", [
+    ((), False, 1 << 21, True), ((), True, 1 << 20, True),
+    ((), True, 1 << 21, True), (vp.BISECT_STEPS, False, 1 << 21, True),
+    (("smem", "xscratch"), False, 1 << 16, True),
+    (("xscratch",), True, 1 << 20, False)])
+def test_mix_plan_shared_memory(steps, staged, n, fits):
+    """K3's 8.5 bytes a row of state, 16 more with xscratch's pair, 8 more
+    with staged's area (134 KB at a chunk of 8192), and the piece table;
+    a (steps, chunk) that does not fit is refused."""
+    plan = sc.cols_plan(n, 1024, 132)
+    pieces = -(-plan.chunks * plan.chunk // vp.PIECE)
+    want = (8.5 + (16 if "xscratch" in steps else 0)
+            + (8 if staged else 0)) * plan.chunk + 4 * (
+                (7 * pieces + 3) & ~3)
+    assert vp.mix_smem(steps, staged, plan.chunk, pieces) == want
+    if fits:
+        assert vp.mix_plan("f", steps, staged, 1024, n, vp.PIECE,
+                           132)[2] == want
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            vp.mix_plan("f", steps, staged, 1024, n, vp.PIECE, 132)
+    if n == 1 << 20 and staged and not steps:
+        assert 130_000 < want < 140_000
+
+
+def test_mix_plan_refuses():
+    with pytest.raises(ValueError, match="n % 4"):
+        vp.mix_plan("f", (), True, 4, 40002, vp.PIECE, 132)
+    with pytest.raises(ValueError, match="piece"):
+        vp.mix_plan("f", (), False, 4, 4096, 16, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        vp.mix_plan("f", ("smem", "xscratch"), False, 4, 1 << 21, 1000, 132)
+    assert vp.mix_plan("f", (), True, 9, 40000, 1000, 132)[0].chunks == 79
+
+
+def test_mix_errors_tolerances():
+    """Bitwise without div_pos / log_pos; else the f64 sinks within 1e-12
+    relative and the f32 tables within one f32 ulp; a NaN (a value the
+    kernel never wrote) always fails."""
+    want = vp.bisect_ref(3, 1000, vp.BISECT_STEPS)
+    got = vp.MixOut(*(None if x is None else x.clone() for x in want))
+    assert vp.mix_errors(got, want, vp.BISECT_STEPS) == (0.0, True)
+    got.v[1, 7] = torch.nextafter(got.v[1, 7], torch.tensor(math.inf))
+    got.xs[3] *= 1 + 5e-13
+    err, ok = vp.mix_errors(got, want, vp.BISECT_STEPS)
+    assert ok and err > 0
+    assert not vp.mix_errors(got, want, vp.ladder()[4])[1]
+    got.xs[3] *= 1 + 5e-12
+    assert not vp.mix_errors(got, want, vp.BISECT_STEPS)[1]
+    got.xs[3] = want.xs[3]
+    got.v[2, 9] = math.nan
+    assert not vp.mix_errors(got, want, vp.BISECT_STEPS)[1]
+
+
+def test_ladder_flops():
+    """The mix's 3 f64 operations a cell; the top rung at one row a thread
+    (2^16 rows) 75, at 16 (2^20 rows) ~56: the scan's per-thread steps
+    spread over the rows."""
+    assert tool.ladder_flops((), 1) == 3
+    assert tool.ladder_flops(vp.BISECT_STEPS, 1) == 75
+    assert tool.ladder_flops(vp.BISECT_STEPS, 16) == pytest.approx(
+        3 + 4 + 4 / 16 + 4 + (45 + 17) / 16 + 21 + 20 + 2 / 16)
+
+
+def test_device_timed_on_the_cpu():
+    """On the CPU device_timed is timed(): the host clock for both times,
+    the last call's result."""
+    calls = []
+    k_ms, call_ms, out = tool.device_timed(
+        lambda: calls.append(1) or len(calls), torch.device("cpu"), reps=3)
+    assert k_ms == call_ms >= 0 and out == 4 and len(calls) == 4
+
+
+def test_tool_ladder_on_the_cpu():
+    """The tool's ladder on the CPU at a tiny size: every rung of P5 and P6
+    timed twice with its increment, K3's time beside it (the CPU's, which
+    mean nothing)."""
+    res = {}
+    out = tool.ladder(torch.device("cpu"), "cpu", ((1024, 4),), res, reps=1)
+    sh = out["1024"]
+    assert set(sh["rungs"]) == {name for name, _, _ in tool.ladder_rungs()}
+    assert sh["rungs"]["mix"]["inc_us_col"] is None
+    assert sh["rungs"]["staged"].get("inc_us_col") is None
+    for name in vp.BISECT_STEPS:
+        row = sh["rungs"][name]
+        assert {"ms_fwd", "ms_rev", "ms", "noise_ms", "us_col",
+                "host_ms"} <= set(row)
+        assert row["inc_us_col"] is not None
+    assert sh["k3_ms"] > 0 and sh["top_share"] > 0 and "mismatch" not in res
+
+
+def _ladder_readings(times, noise=0.002, piecewise=0.2):
+    rungs = tool.ladder_rungs()
+    ms = dict(zip([name for name, _, _ in rungs], times))
+    n, m = tool.K3_SHAPES[1]
+    return {"n": n, "m": m, "piecewise_ms": piecewise,
+            "rungs": {name: {"ms": ms[name], "noise_ms": noise}
+                      for name, _, _ in rungs}}
+
+
+@pytest.mark.parametrize("drop,noise,ok", [
+    (0.0, 0.002, True), (0.01, 0.002, True), (0.05, 0.002, False),
+    (0.05, 0.03, True), (0.2, 0.03, False)])
+def test_impossible_ladder_rung_faster_than_the_one_before(drop, noise, ok):
+    """A rung faster than the rung before it by more than twice the larger
+    noise (at least LADDER_FLOOR of its time) is reported: the compiler
+    removed work.  Here barriers runs ``drop`` ms under vcarry."""
+    times = [0.34, 0.34, 0.37, 0.37, 0.37, 0.37 - drop, 0.72, 0.75, 0.95,
+             1.2, 0.47]
+    res = _readings()
+    res["ladder"] = {"65536": _ladder_readings(times, noise)}
+    bad = tool.impossible(res)
+    assert (bad == []) == ok
+    assert ok or any("barriers" in b and "rung before" in b for b in bad)
+
+
+def test_impossible_ladder_faster_than_piecewise():
+    """P5's mix under P1 piecewise at the same shape (it stores the same
+    bytes and more) is reported; staged is held to the byte rate alone."""
+    times = [0.30, 0.34, 0.35, 0.35, 0.35, 0.40, 0.72, 0.75, 0.95, 1.2, 0.05]
+    res = _readings()
+    res["ladder"] = {"65536": _ladder_readings(times, piecewise=0.34)}
+    bad = tool.impossible(res)
+    assert any(b.startswith("ladder 65536 mix") and "piecewise" in b
+               for b in bad)
+    assert any(b.startswith("ladder 65536 staged") and "GB/s" in b
+               for b in bad)
+    assert not any("smem" in b for b in bad)
+
+
+def _ladder_sass(drop=None):
+    """cuobjdump -sass text of the P5 / P6 kernels, each rung with its
+    marks; ``drop`` (a rung's name) gives that rung the rung before it's."""
+    counts = {"mix": {}, "staged": {"UBLKCP.G.S": 4},
+              "barriers": {"BAR.SYNC.DEFER_BLOCKING": 64},
+              "scan": {"SHFL.UP": 44}, "div_pos": {"MUFU.RCP64H": 15},
+              "log_pos": {"MUFU.RCP64H": 28},
+              "handoff": {"ATOMG.E.ADD.STRONG.GPU": 1,
+                          "LDG.E.64.STRONG.GPU": 2}}
+    lines, acc, addr = ["\tcode for sm_90a"], Counter(
+        {"BAR.SYNC.DEFER_BLOCKING": 3, "MUFU.RCP64H": 3}), 0
+    for name, steps, staged in tool.ladder_rungs():
+        ops = Counter(acc)
+        if name != drop:
+            ops.update(counts.get(name, {}))
+        if not staged:
+            acc = Counter(ops)
+        lines.append(f"\t\tFunction : _ZN45_GLOBAL__N__d5eaa224_12_vpu_probe_"
+                     f"cu_f64d4cb410mix_kernelILi{vp.steps_bits(steps)}ELb"
+                     f"{int(staged)}EEEvPKfPfS3_PdS4_S4_Piiiiiiii")
+        for op, c in ops.items():
+            for _ in range(c):
+                lines.append(f"        /*{addr:04x}*/                   {op} "
+                             "R4, R4 ;   /* 0x000fe40000000800 */")
+                addr += 16
+    return "\n".join(lines) + "\n"
+
+
+def test_ladder_work_counts_each_rungs_marks():
+    """Every rung's mark counted in its kernel against the rung before:
+    the named barriers, the scan's SHFL.UP, div_pos's and log_pos's
+    MUFU.RCP64H, the hand-off's ATOMG and strong poll, staged's bulk
+    copies against P5 mix."""
+    rows, short = tool.ladder_work(_ladder_sass())
+    assert short == []
+    assert rows["barriers BAR.SYNC"] == {"count": 67, "before": 3, "need": 2}
+    assert rows["log_pos MUFU.RCP64H"]["before"] == 18
+    assert rows["staged UBLKCP"] == {"count": 4, "before": 0, "need": 2}
+    assert set(rows) == {f"{r} {mark}" for r, marks in
+                         tool.LADDER_MARKS.items() for mark, _ in marks}
+
+
+@pytest.mark.parametrize("rung", ["barriers", "scan", "div_pos", "log_pos",
+                                  "handoff", "staged"])
+def test_ladder_work_reports_a_missing_step(rung):
+    _, short = tool.ladder_work(_ladder_sass(drop=rung))
+    assert short and all(s.startswith(f"sass {rung}:") for s in short)
+
+
+def test_ladder_work_reports_missing_kernels():
+    text = _ladder_sass()
+    cut = text.index("mix_kernelILi63ELb0")          # the scan rung
+    start = text.rindex("\t\tFunction", 0, cut)
+    end = text.index("\t\tFunction", cut)
+    _, short = tool.ladder_work(text[:start] + text[end:])
+    assert "sass scan: not in the library" in short
+
+
+def test_mix_bisect_refuse_the_cpu_and_other_rungs():
+    before = dict(vp.LAUNCHES)
+    for call in (lambda: vp.mix_cuda(4, 1024, device="cpu"),
+                 lambda: vp.mix_cuda(4, 1024, "staged", device="cpu"),
+                 lambda: vp.bisect_cuda(4, 1024, ("smem",), device="cpu")):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            call()
+    assert vp.LAUNCHES == before
+    assert {"mix", "bisect"} <= set(vp.LAUNCHES)
+    with pytest.raises(ValueError, match="not a rung"):
+        vp.bisect_cuda(4, 1024, ("scan",), device="cuda:0")
+    with pytest.raises(ValueError, match="mode"):
+        vp.mix_cuda(4, 1024, "piecewise", device="cuda:0")
+
+
 # -- the wrappers, the builder, the tool -----------------------------------------
 
 @pytest.mark.parametrize("call", [
@@ -630,3 +1090,19 @@ def test_smem_and_overlap_kernels_match_ref(cuda_device, mode):
     got = vp.overlap_cuda(9, 40000, 16, device=cuda_device)
     want = vp.overlap_ref(9, 40000, 16, device=cuda_device)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mix_and_bisect_kernels_match_ref(cuda_device):
+    """P5 in both modes and every P6 rung against bisect_ref (f64) at a
+    short last chunk and at two waves of chunks."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, m in ((40000, 9), (1 << 21, 4)):
+        want = vp.mix_ref(m, n, sms=sms, device=cuda_device)
+        for mode in vp.MIX_MODES:
+            got = vp.mix_cuda(m, n, mode, device=cuda_device)
+            assert vp.mix_errors(got, want)[1]
+        for steps in vp.ladder():
+            got = vp.bisect_cuda(m, n, steps, device=cuda_device)
+            want = vp.bisect_ref(m, n, steps, sms=sms, device=cuda_device)
+            assert vp.mix_errors(got, want, steps)[1]

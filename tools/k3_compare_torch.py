@@ -3,7 +3,7 @@
 time beside other builds of K3 in the same process, and K2 against K3
 around the routing cutoff.
 
-  python tools/k3_compare_torch.py [--crossover] [SOURCE.cu ...]
+  python tools/k3_compare_torch.py [--crossover] [--ladder] [SOURCE.cu ...]
 
 Each SOURCE is another K3 source file, built here with the package's nvcc
 flags (csrc/ on the include path) into libstb_tpu_torch/_build/.  Two C
@@ -20,7 +20,12 @@ older K3 is taken from git, for example
 The fills are f32 at a = 0.5, at (2^16, 1024) and (2^20, 1024), timed
 with CUDA events (median of 5) in turns: every build, then again in the
 reverse order.  --crossover also times K2 and K3 at n = r m for r = 2..8
-(median of 7).  Every line carries the card's name and power limit.
+(median of 7).  --ladder also runs P6's ladder at (2^16, 1024)
+(tools/vpu_probe_torch.py's ladder: P5's mix, then each step toward K3,
+every output held to its plain version) and prints each rung's us a
+column, a call's device time without its host work, beside every K3
+build's, a call's time with its host work.  Every line carries the
+card's name and power limit.
 """
 import argparse
 import ctypes
@@ -36,6 +41,9 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from libstb_tpu_torch.ops import stirling_cuda as sc  # noqa: E402
+
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import vpu_probe_torch as vpt  # noqa: E402
 
 SHAPES = ((1 << 16, 1024), (1 << 20, 1024))
 CROSS_M = (64, 100, 200, 256, 512, 1024, 2048, 4096)
@@ -113,6 +121,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*")
     ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--ladder", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k3_compare_torch: no CUDA device")
@@ -128,6 +137,7 @@ def main(argv=None):
         fills.update(build(path))
     fills["K3 (package)"] = lambda a, n, m: sc.fill_table_cols_cuda(a, n, m)
     order = list(fills) + list(fills)[::-1]
+    k3_times = {}
     for n, m in SHAPES:
         times = {name: [] for name in fills}
         for name in order:
@@ -138,7 +148,25 @@ def main(argv=None):
                   f"{100 * b_ms / t1:.2f} / {100 * b_ms / t2:.2f}% of the "
                   f"bound {b_ms:.4f} ms ({b_by}); {1e3 * t1 / m:.3f} us a "
                   f"column [{card}]", flush=True)
+        k3_times[(n, m)] = {name: sum(t) / 2 for name, t in times.items()}
         torch.cuda.empty_cache()
+    if args.ladder:
+        n, m = SHAPES[0]
+        res = {}
+        sh = vpt.ladder(dev, card, (SHAPES[0],), res)[str(n)]
+        if res.get("mismatch"):
+            raise SystemExit(f"k3_compare_torch: {res['mismatch']}")
+        print(f"({n}, {m}) P6's ladder, us a column (+ over the rung "
+              f"before): {vpt.ladder_summary(sh)} [{card}]")
+        top = sh["rungs"][vpt.ladder_rungs()[-2][0]]["ms"]
+        print(f"({n}, {m}) the ladder's K3: {sh['k3_ms']:.4f} ms of device "
+              f"time a call, host gap {sh['k3_host_ms']:.4f} ms; the top "
+              f"rung's {top:.4f} ms is {100 * sh['top_share']:.2f}% of it "
+              f"[{card}]", flush=True)
+        for name, ms in k3_times[(n, m)].items():
+            print(f"({n}, {m}) {name}: {1e3 * ms / m:.4f} us a column a "
+                  f"call (host work included); the top rung's device time is "
+                  f"{100 * top / ms:.2f}% of it [{card}]", flush=True)
     if args.crossover:
         for m in CROSS_M:
             for r in range(2, 9):

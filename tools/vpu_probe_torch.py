@@ -15,6 +15,14 @@ JAX tool's shapes translated to the card (ops/vpu_probe_cuda.py):
            the pad, 1024 steps (one a K3 column); ns per warp access an SM
   overlap  P4: K3's geometry at (2^20, 1024), FMA chains of 64, 128 and 256
            steps a column: the chains alone, the stores alone, both
+  ladder   P5 (mix, staged) and every rung of P6's ladder (ops/
+           vpu_probe_cuda.py: ladder(), from K3's memory mix step by step
+           to K3's structure) at both of K3's shapes, beside K3 itself
+           (a = 0.5, f32) in the same process: each rung's time, us a
+           column and increment over the rung before, timed twice (every
+           rung, then again in the reverse order; the time is the mean of
+           the two medians, the noise their difference), and the share of
+           K3's time the top rung reaches
 
 and from them the floors of K1 at its benchmark shape (64 x 16384 x 1024),
 K2 at (16384, 1024) and K3 at (2^20, 1024) and (2^16, 1024):
@@ -29,7 +37,9 @@ K2 at (16384, 1024) and K3 at (2^20, 1024) and (2^16, 1024):
                runs the two at once (the floors take their max), 0 if one
                after the other (they add)
 
-Times are CUDA events, the median of 5 after a warm call.  The card's name,
+Times are CUDA events, the median of 5 after a warm call; the ladder's are
+each call's device time alone, queued behind a spin (device_timed), with
+the host gap a call between events adds beside them.  The card's name,
 power limit and SM clock under load (nvidia-smi, sampled while an FMA probe
 runs) are printed beside the rates.  A reading that cannot stand fails the
 run (impossible()):
@@ -45,7 +55,18 @@ run (impossible()):
     their fixed point or cycle (roll has period 32) long before the 2048 x
     8 steps, so their values cannot show a step that was skipped; the
     instructions can;
-  * an overlap fraction outside [-0.05, 1.05].
+  * an overlap fraction outside [-0.05, 1.05];
+  * a ladder rung faster than the rung before it by more than the noise
+    (twice the larger of the two rungs' noise, at least LADDER_FLOOR of
+    the time), or faster than P1 piecewise at the same shape (by more
+    than LADDER_FLOOR): the compiler removed work;
+  * a P6 rung whose compiled code lacks its step's mark (LADDER_MARKS,
+    counted against the rung before it), or P5 staged without its bulk
+    copies.
+
+P5 / P6 outputs are held to their plain versions (bisect_ref) bitwise,
+or where div_pos / log_pos are in play (vp.mix_errors) the f64 sinks
+within 1e-12 relative and the f32 tables within one f32 ulp.
 
 Readable lines go to stderr, one JSON object to stdout.
 
@@ -70,6 +91,7 @@ import numpy as np
 import torch
 
 from libstb_tpu_torch.ops import _nvcc
+from libstb_tpu_torch.ops import stirling_cuda as sc
 from libstb_tpu_torch.ops import vpu_probe_cuda as vp
 
 HBM_BPS = 3.35e12                       # H100 SXM data sheet
@@ -86,11 +108,43 @@ K3_SHAPES = ((1 << 20, 1024), (1 << 16, 1024))   # bench.py:108-140, 6c
 # row_map twice at 4, the composition 2, the replay 1, store_row's Kahan 4)
 CELL_F64 = {"K1": 11, "K2": 11, "K3": 15}
 
+# a ladder rung may be this much faster than the rung before it (or P1
+# piecewise) without a finding, whatever the measured noise: the TPU
+# flags' rungs add ~nothing, and neighbours of equal work differ by up to
+# ~3% between medians of 5 at (2^16, 1024) on an H100
+LADDER_FLOOR = 0.05
+# device_timed's head start for the card, ~20 ms at an H100's 1980 MHz:
+# the host queues a reading's calls meanwhile (a call's host work is under
+# 0.5 ms)
+SPIN_CYCLES = 40_000_000
+
+
+# f64 operations a cell of each ladder step (a divide or log counted as 20,
+# as chip_smoke.FILL_FLOPS): the mix's multiply, add and Srel's + 1; the
+# Kahan step; per thread (/ k rows) the vcarry sums, the warp scan's 5
+# composition steps and the entering value, per row B = (1 - A) out, the
+# composition and the replay; the divide and its 2 + |state|; the log;
+# per thread the hand-off's entering value
+def ladder_flops(steps, k: int) -> float:
+    """f64 operations a cell of P6 at ``steps`` with k rows a thread."""
+    has = set(steps).__contains__
+    f = 3.0
+    f += 4 if has("xscratch") else 0
+    f += 4 / k if has("vcarry") else 0
+    f += (4 + (3 * (k - 1) + 15 + 2) / k) if has("scan") else 0
+    f += 21 if has("div_pos") else 0
+    f += 20 if has("log_pos") else 0
+    f += 2 / k if has("handoff") else 0
+    return f
+
+
 SIZES = {
     "cuda": dict(write=K3_SHAPES, alu_r=2048, smem_steps=1024,
-                 overlap_iters=(64, 128, 256), overlap_shape=K3_SHAPES[0]),
+                 overlap_iters=(64, 128, 256), overlap_shape=K3_SHAPES[0],
+                 ladder=K3_SHAPES),
     "cpu": dict(write=((1024, 4), (512, 4)), alu_r=2, smem_steps=1,
-                overlap_iters=(8, 16), overlap_shape=(1024, 4)),
+                overlap_iters=(8, 16), overlap_shape=(1024, 4),
+                ladder=((1024, 4), (2048, 3))),
 }
 CPU_THREADS = 64                        # P2's threads on the CPU
 CPU_SMEM_CHUNK = 1024                   # P3's chunk on the CPU
@@ -129,6 +183,36 @@ def timed(fn, device, reps=5):
             out = fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times)), out
+
+
+def device_timed(fn, device, reps=5):
+    """(device ms, call ms, last result).  Device ms: the median over
+    ``reps`` calls of the card's time for one call's work, each call
+    queued behind a spin of SPIN_CYCLES, so that its pair of CUDA events
+    brackets the kernels it launched and not the host's time to launch
+    them; fails if the spin ended before the host had queued every call.
+    Call ms: timed(fn), whose window opens on an idle card and so also
+    holds the wrapper's host work.  On the CPU both are timed()'s."""
+    call_ms, out = timed(fn, device, reps)
+    if device.type != "cuda":
+        return call_ms, call_ms, out
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    spun = torch.cuda.Event()
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun.record()
+    for start, end in pairs:
+        start.record()
+        out = fn()
+        end.record()
+    if spun.query():
+        raise RuntimeError(f"device_timed: the card ran out of its "
+                           f"{SPIN_CYCLES}-cycle spin before the host had "
+                           f"queued {reps} calls")
+    torch.cuda.synchronize(device)
+    return (float(np.median([s.elapsed_time(e) for s, e in pairs])),
+            call_ms, out)
 
 
 def _say(msg):
@@ -294,6 +378,130 @@ def overlap(device, card, shape, iters_list, res, reps=5):
     return rows
 
 
+def ladder_rungs():
+    """[(name, steps, staged)]: P5's mix, P6's rungs in order (each named
+    by the step it adds), and P5 staged beside the ladder."""
+    return ([("mix", (), False)] + [(st[-1], st, False) for st in vp.ladder()]
+            + [("staged", (), True)])
+
+
+def ladder_summary(shape_row) -> str:
+    """One shape's ladder as text: each rung's us a column (+ over the rung
+    before)."""
+    return ", ".join(
+        f"{name} {r['us_col']:.4f}" + ("" if r.get("inc_us_col") is None
+                                       else f" ({r['inc_us_col']:+.4f})")
+        for name, r in shape_row["rungs"].items())
+
+
+def ladder(device, card, shapes, res, reps=5):
+    """P5 and P6's ladder at each (n, m) of ``shapes`` beside K3 (a = 0.5,
+    f32) and P1 piecewise: per rung ms, a call's device time
+    (device_timed; the mean of a forward and a reverse pass, each a median
+    of ``reps``), noise_ms (their difference), us a column and its
+    increment over the rung before, host_ms (a call's time between CUDA
+    events less its device time: the wrapper's host work), the plain
+    version's host time and the largest difference from it; top_share,
+    the top rung's device time over K3's.  On the card each output is held
+    to bisect_ref (vp.mix_errors)."""
+    on_card = device.type == "cuda"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if on_card else 132
+    rungs = ladder_rungs()
+    rows = {}
+    for n, m in shapes:
+        a32 = torch.full((1,), vp.A_SMEM, device=device)
+        k3 = (sc.fill_table_cols_cuda if on_card else sc.fill_table_cols_ref)
+        k3_ms, k3_call_ms, got = device_timed(lambda: k3(a32[0], n, m),
+                                              device, reps)
+        del got
+        plan = vp.cols_plan(n, m, sms)
+        bufs = (torch.empty((m, n), device=device),
+                torch.empty((m, n), device=device),
+                torch.empty((plan.chunks * vp.ROW_THREADS, 2),
+                            dtype=torch.float64, device=device),
+                torch.empty(n, dtype=torch.float64, device=device))
+        pw_ms = None
+        if on_card:
+            pw_ms, _, got = device_timed(
+                lambda: vp.write_floor_cuda(m, n, "piecewise", device=device,
+                                            out=bufs[:2]), device, reps)
+            del got
+        entry = {}
+        for name, steps, staged in rungs + rungs[::-1]:
+            if on_card:
+                out = tuple(b if i < 2 or (i == 2 and "vcarry" in steps) or (
+                    i == 3 and "xscratch" in steps) else None
+                    for i, b in enumerate(bufs))
+                for b in out:
+                    if b is not None:
+                        b.fill_(float("nan"))
+                if steps:
+                    fn = (lambda: vp.bisect_cuda(m, n, steps, a=a32,
+                                                 device=device, out=out))
+                else:
+                    mode = "staged" if staged else "mix"
+                    fn = (lambda: vp.mix_cuda(m, n, mode, device=device,
+                                              out=out[:2]))
+            else:
+                fn = (lambda: vp.bisect_ref(m, n, steps, device=device))
+            ms, call_ms, got = device_timed(fn, device, reps)
+            if name in entry:
+                row = entry[name]
+                row["ms_rev"] = ms
+                row["ms"] = (row["ms_fwd"] + ms) / 2
+                row["noise_ms"] = abs(row["ms_fwd"] - ms)
+                row["us_col"] = row["ms"] * 1e3 / m
+                row["host_ms"] = (row["call_ms_fwd"] + call_ms) / 2 - row["ms"]
+                continue
+            row = entry[name] = {"steps": list(steps), "staged": staged,
+                                 "ms_fwd": ms, "call_ms_fwd": call_ms}
+            if on_card:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                want = vp.bisect_ref(m, n, steps, sms=sms, device=device)
+                torch.cuda.synchronize(device)
+                row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                err, ok = vp.mix_errors(tuple(got), want, steps)
+                row["max_abs_err"] = err
+                row["exact"] = vp.bisect_exact(steps)
+                if not ok:
+                    _mismatch(res, f"ladder {name} at ({n}, {m}): largest "
+                                   f"difference {err:.3g}")
+                del want
+            del got
+        prev = None
+        for name, _, staged in rungs:
+            row = entry[name]
+            if not staged:
+                row["inc_us_col"] = (row["us_col"] - prev["us_col"]
+                                     if prev else None)
+                prev = row
+        top = entry[rungs[-2][0]]
+        rows[str(n)] = {"n": n, "m": m, "k3_ms": k3_ms,
+                        "k3_us_col": k3_ms * 1e3 / m,
+                        "k3_host_ms": k3_call_ms - k3_ms,
+                        "piecewise_ms": pw_ms,
+                        "chunk": plan.chunk, "rungs": entry,
+                        "top_share": top["ms"] / k3_ms}
+        for name, _, staged in rungs:
+            row = entry[name]
+            inc = row.get("inc_us_col")
+            _say(f"ladder ({n}, {m}) {name:10s} {row['ms']:.4f} ms "
+                 f"(+-{row['noise_ms']:.4f}) = {row['us_col']:.4f} us a "
+                 f"column" + ("" if inc is None else f", {inc:+.4f} over "
+                              "the rung before") + f"; host gap "
+                 f"{row['host_ms']:.4f} ms [{card}]")
+        _say(f"ladder ({n}, {m}): K3 {k3_ms:.4f} ms = "
+             f"{k3_ms * 1e3 / m:.4f} us a column (host gap "
+             f"{k3_call_ms - k3_ms:.4f} ms), P1 piecewise "
+             + ("not timed" if pw_ms is None else f"{pw_ms:.4f} ms")
+             + f"; the top rung reaches "
+             f"{100 * rows[str(n)]['top_share']:.2f}% of K3 [{card}]")
+        del bufs
+    return rows
+
+
 # P2's and P4's kernels in the compiled library, by their mangled names,
 # and the instruction that marks one step of each: the step's own FMA,
 # multiply or shuffle; the hardware reciprocal each divide starts from
@@ -365,16 +573,67 @@ def compiled_work(text: str):
     return rows, short
 
 
+# P5 / P6's kernels by their template arguments (the steps' bits, staged),
+# and the mark of each step that its values cannot show, counted in the
+# rung's kernel against the rung before it (P5 staged: against P5 mix):
+# the named barriers, the scan's shuffles (a double is two), the divide's
+# hardware reciprocal (log_pos's reduction divides too), the hand-off's
+# ticket and its relaxed poll, staged's bulk copies
+_MIX = re.compile(r"mix_kernelILi(\d+)ELb([01])EE")
+LADDER_MARKS = {"barriers": (("BAR.SYNC", 2),),
+                "scan": (("SHFL.UP", 20),),
+                "div_pos": (("MUFU.RCP64H", 1),),
+                "log_pos": (("MUFU.RCP64H", 1),),
+                "handoff": (("ATOMG", 1), ("LDG.E.64.STRONG.GPU", 1)),
+                "staged": (("UBLKCP", 2),)}
+
+
+def _count_prefix(ops: Counter, mark: str) -> int:
+    return sum(c for op, c in ops.items() if op.startswith(mark))
+
+
+def ladder_work(text: str):
+    """Each ladder rung's marks (LADDER_MARKS) in the cuobjdump -sass
+    ``text``, against the rung before it: ({"rung mark": {"count",
+    "before", "need"}}, [shortfalls]); a rung's kernel missing from the
+    library is a shortfall."""
+    kern = {}
+    for name, ops in sass_opcodes(text).items():
+        hit = _MIX.search(name)
+        if hit:
+            kern[(int(hit.group(1)), hit.group(2) == "1")] = ops
+    rows, short = {}, []
+    prev = None
+    for name, steps, staged in ladder_rungs():
+        key = (vp.steps_bits(steps), staged)
+        if key not in kern:
+            short.append(f"sass {name}: not in the library")
+            continue
+        base = kern.get((0, False)) if staged else prev
+        for mark, need in LADDER_MARKS.get(name, ()):
+            count = _count_prefix(kern[key], mark)
+            before = _count_prefix(base, mark) if base is not None else 0
+            rows[f"{name} {mark}"] = {"count": count, "before": before,
+                                      "need": need}
+            if count - before < need:
+                short.append(f"sass {name}: {count} {mark} against "
+                             f"{before} in the rung before, < +{need}")
+        if not staged:
+            prev = kern[key]
+    return rows, short
+
+
 def sass_check(device):
-    """compiled_work() of the probes' library (cuobjdump -sass beside
-    nvcc); None on the CPU."""
+    """compiled_work() and ladder_work() of the probes' library
+    (cuobjdump -sass beside nvcc); None on the CPU."""
     if device.type != "cuda":
         return None
     dump = Path(_nvcc.nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(dump), "-sass", str(vp.build()["vpu_probe"])],
                           capture_output=True, text=True, check=True).stdout
     rows, short = compiled_work(text)
-    return {"kernels": rows, "short": short}
+    lrows, lshort = ladder_work(text)
+    return {"kernels": rows, "ladder": lrows, "short": short + lshort}
 
 
 def floors(res):
@@ -442,6 +701,29 @@ def impossible(res):
         if not lo <= v["fraction"] <= hi:
             bad.append(f"overlap {k}: fraction {v['fraction']:.4f} outside "
                        f"[{lo}, {hi}]")
+    for key, sh in (res.get("ladder") or {}).items():
+        nbytes = 2 * 4 * sh["n"] * sh["m"]
+        prev = None
+        for name, _, staged in ladder_rungs():
+            row = sh["rungs"][name]
+            if nbytes / (row["ms"] * 1e-3) > PLAUSIBLE * HBM_BPS:
+                bad.append(f"ladder {key} {name}: "
+                           f"{nbytes / (row['ms'] * 1e6):.1f} GB/s")
+            if staged:
+                continue
+            pw = sh.get("piecewise_ms")
+            if pw and row["ms"] < (1 - LADDER_FLOOR) * pw:
+                bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, "
+                           f"faster than P1 piecewise's {pw:.4f}")
+            if prev is not None:
+                slack = max(2 * max(row["noise_ms"], prev["noise_ms"]),
+                            LADDER_FLOOR * prev["ms"])
+                if prev["ms"] - row["ms"] > slack:
+                    bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, "
+                               f"faster than the rung before "
+                               f"({prev['ms']:.4f}) by more than "
+                               f"{slack:.4f}")
+            prev = row
     bad += res.get("mismatch", [])
     if res.get("sass"):
         bad += res["sass"]["short"]
@@ -475,6 +757,7 @@ def run(device, card, sizes):
     res["overlap_shape"] = list(sizes["overlap_shape"])
     res["overlap"] = overlap(device, card, sizes["overlap_shape"],
                              sizes["overlap_iters"], res)
+    res["ladder"] = ladder(device, card, sizes["ladder"], res)
     res["floors"] = floors(res)
     for kern, f in res["floors"]["kernels"].items():
         _say(f"{kern}: write floor {f['write_floor_ms']:.4f} ms "
@@ -489,6 +772,9 @@ def run(device, card, sizes):
         _say("compiled steps (mark: count / need): " + ", ".join(
             f"{k} {v['mark']} {v['count']}/{v['need']}"
             for k, v in sorted(res["sass"]["kernels"].items())))
+        _say("ladder marks (count, the rung before, need): " + ", ".join(
+            f"{k} {v['count']}/{v['before']}/+{v['need']}"
+            for k, v in res["sass"]["ladder"].items()))
     return res
 
 
