@@ -171,17 +171,26 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      fraction outside [-0.05, 1.05] fails the run; (c) K1-K3's time
      against each floor: the data sheet's bound(), the measured write
      floor, the measured issue floor and the two combined by the measured
-     overlap; the outputs freed at the end.  P5 (mix, staged) and every
-     rung of P6's ladder (from K3's memory mix step by step to K3's
-     structure) are held to their plain versions in 19a at the same small
-     shapes and in 19b at K3's two shapes (bitwise; where div_pos /
-     log_pos are in play the f64 sinks within 1e-12 relative and the f32
-     tables within one f32 ulp), each rung's SASS mark counted against the
-     rung before; 19b fails on a rung faster than the rung before it by
-     more than the noise or than P1 piecewise; 19c prints the ladder, us a
-     column, beside K3's own time from 6c (the ladder's times, K3's beside
-     it and P1 piecewise's there are each call's device time, queued
-     behind a spin so that the events hold no host work).
+     overlap; the outputs freed at the end.  P5 (mix, and staged through
+     a double-buffered staging area) and every rung of P6's ladder (from
+     K3's memory mix step by step to K3's structure) and of its branch
+     from the top rung (the top rung with storewarps, with early and with
+     both: levers that move work between warps; where storewarps fits) are
+     held to their plain versions in 19a at the same small shapes and in
+     19b at K3's two shapes (bitwise; where div_pos / log_pos are in play
+     the f64 sinks within 1e-12 relative and the f32 tables within one
+     f32 ulp; the branch, where it fits, bitwise to the top rung, in 19a
+     also over a quarter of the blocks), each rung's SASS marks counted
+     against the rung before (a branch rung's against the top rung, and
+     the top rung's marks against P5 mix); 19b fails on a ladder rung
+     faster than the rung before it by more than the noise, a branch rung
+     faster than the faster of P5's modes, or either faster than P1
+     piecewise; 19c prints the ladder, us a column, beside K3's own time
+     from 6c (the ladder's times, K3's beside it and P1 piecewise's there
+     are each call's device time, queued behind a spin so that the events
+     hold no host work), and at (2^16, 256) and (2^16, 512) too, with
+     each one's fill and period from the three m and the line's
+     residual.
 
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is a JSON object with each kernel's launches (summed
@@ -2402,7 +2411,11 @@ PROBE_REPLACES = {"write_floor": "tools/vpu_probe.py:93",
                   "smem": "tools/vpu_probe.py:232",
                   "overlap": "tools/vpu_probe.py:375",
                   "mix": "tools/vpu_probe.py:331",
-                  "bisect": "tools/vpu_probe.py:476"}
+                  "bisect": "tools/vpu_probe.py:476",
+                  "mix_staged": "tools/vpu_probe.py:331",
+                  "bisect_storewarps": "tools/vpu_probe.py:476",
+                  "bisect_early": "tools/vpu_probe.py:476",
+                  "bisect_storewarps_early": "tools/vpu_probe.py:476"}
 # 19a's (n, m): a last chunk cut short (40000 rows: 78 chunks of 512 and 64
 # rows), and chunks in two waves (2^21 rows: 228 chunks of 9216, 132 SMs)
 PROBE_SHAPES = ((40000, 9), (1 << 21, 4))
@@ -2415,10 +2428,12 @@ PROBE_ITERS = 16                        # 19a: a chain short of its fixed point
 SMEM_BYTES_A_CYCLE = 128
 
 
-def check_probes(dev, vp):
-    """19a: each probe kernel against its plain version on the card;
-    returns the largest absolute error of each probe and the relative
-    error of each issue-rate op."""
+def check_probes(dev, vp, tool):
+    """19a: each probe kernel against its plain version on the card, and
+    each rung of P6's branch bitwise against the ladder's top rung, also
+    over a quarter of the blocks (several chunks a block, in turn); returns
+    the largest absolute error of each probe and the relative error of
+    each issue-rate op."""
     errs = dict.fromkeys(vp.PROBES, 0.0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, m in PROBE_SHAPES:
@@ -2477,15 +2492,33 @@ def check_probes(dev, vp):
                 err, ok = vp.mix_errors(got, want)
                 check(ok, f"19a: mix {mode} (piece {piece}) at {(n, m)} "
                           "differs from its plain version")
-                errs["mix"] = max(errs["mix"], err)
-            for steps in vp.ladder():
+                name = vp.probe_name((), mode)
+                errs[name] = max(errs[name], err)
+            top = None
+            blocks = max(1, vp.cols_plan(n, m, sms).blocks // 4)
+            for steps in vp.ladder() + vp.branch():
+                # storewarps' columns of V do not fit at (2^21, 4)'s chunks
+                if not tool.rung_fits(steps, False, n, m, sms, piece):
+                    continue
                 got = vp.bisect_cuda(m, n, steps, piece, a32, device=dev)
                 want = vp.bisect_ref(m, n, steps, piece=piece, sms=sms,
                                      device=dev)
                 err, ok = vp.mix_errors(got, want, steps)
                 check(ok, f"19a: bisect {steps[-1]} (piece {piece}) at "
                           f"{(n, m)}: largest difference {err:.3g}")
-                errs["bisect"] = max(errs["bisect"], err)
+                name = vp.probe_name(steps)
+                errs[name] = max(errs[name], err)
+                if steps == vp.BISECT_STEPS:
+                    top = got
+                elif steps in vp.branch():
+                    few = vp.bisect_cuda(m, n, steps, piece, a32, device=dev,
+                                         blocks=blocks)
+                    for out, how in ((got, ""), (few, f" over {blocks} "
+                                                      "blocks")):
+                        check(all(torch.equal(g, t)
+                                  for g, t in zip(out, top)),
+                              f"19a: bisect {steps[-1]} (piece {piece}) at "
+                              f"{(n, m)}{how} differs from the top rung")
     return errs, rel
 
 
@@ -2499,11 +2532,14 @@ def phase19_probes(dev, vp, card, fills):
 
     torch.cuda.empty_cache()
     t0 = phase("19a the probes (csrc/vpu_probe.cu) vs their plain versions")
-    errs, rel = check_probes(dev, vp)
+    errs, rel = check_probes(dev, vp, tool)
     print("   write_floor, smem, overlap bitwise equal; alu relative errors: "
           + ", ".join(f"{k} {e:.3g}" for k, e in rel.items())
-          + f"; mix bitwise, bisect's ladder within its tolerance (largest "
-          f"difference {errs['bisect']:.3g})")
+          + f"; mix and staged bitwise, bisect's ladder and branch "
+          f"within its tolerance (largest difference "
+          f"{max(errs[x] for x in vp.PROBES if x.startswith('bisect')):.3g})"
+          f", the branch bitwise equal to the top rung, at cols_plan's "
+          f"blocks and at a quarter of them")
     done(t0)
 
     t0 = phase("19b tools/vpu_probe_torch.py at full size")
@@ -2618,10 +2654,12 @@ def phase19_probes(dev, vp, card, fills):
     top_steps = vp.ladder()[-1]
     b_ms = 2 * 4 * m * n / HBM_BPS * 1e3
     o_ms = tool.ladder_flops(top_steps, k) * m * n / F64_FLOPS * 1e3
-    for name, row, bnd, by in (
-            ("mix", lad["rungs"]["mix"], b_ms, "bytes"),
-            ("bisect", lad["rungs"][top_steps[-1]], max(b_ms, o_ms),
-             "bytes" if b_ms >= o_ms else "operations")):
+    top_bound = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+    for name in ("mix", "bisect", "mix_staged", "bisect_storewarps",
+                 "bisect_early", "bisect_storewarps_early"):
+        rung = ("handoff" if name == "bisect" else name.split("_", 1)[-1])
+        row = lad["rungs"][rung]
+        bnd, by = (b_ms, "bytes") if name.startswith("mix") else top_bound
         probes[name] = {
             "max_abs_err": max(errs[name], row["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bnd,
@@ -2630,7 +2668,7 @@ def phase19_probes(dev, vp, card, fills):
     for key, sh in res["ladder"].items():
         k3_6c = fills[f"K3_{key}"]
         print(f"   ladder at ({sh['n']}, {sh['m']}), us a column (+ over the "
-              f"rung before): {tool.ladder_summary(sh)}")
+              f"rung before): {tool.ladder_summary(sh)} [{card}]")
         print(f"   K3 at ({sh['n']}, {sh['m']}): {k3_6c:.4f} ms a call in "
               f"6c = {k3_6c * 1e3 / sh['m']:.4f} us a column; beside the "
               f"ladder its device time {sh['k3_ms']:.4f} ms a call (host "
@@ -2639,6 +2677,12 @@ def phase19_probes(dev, vp, card, fills):
               f"{100 * sh['top_share']:.2f}% of K3's device time, "
               f"{100 * sh['rungs'][top_steps[-1]]['ms'] / k3_6c:.2f}% of "
               f"6c's call [{card}]")
+    for key, sh in res["ladder_short"].items():
+        print(f"   ladder at ({sh['n']}, {sh['m']}), us a column: "
+              f"{tool.ladder_summary(sh)}; K3 {sh['k3_us_col']:.4f} [{card}]")
+    for key, f in res["fit"].items():
+        print(f"   fill + m x period at n = {key} (m = "
+              f"{tool.fit_ms(res, key)}): {tool.fit_summary(f)} [{card}]")
     for name, p in probes.items():
         print(f"   {name}: {p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
               f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}), library "

@@ -68,9 +68,12 @@
 //    store pass does.  ``staged``: the column goes to a staging area in
 //    shared memory instead and, after a barrier, one thread copies it whole
 //    to each table with one bulk copy (cp.async.bulk, the Tensor Memory
-//    Accelerator's linear copy), completed (its reads) before the area is
-//    reused: the counterpart of the TPU's whole-block copy.  Bound by the
-//    bytes written, as K3's store pattern (P1 piecewise) is.
+//    Accelerator's linear copy): the counterpart of the TPU's whole-block
+//    copy.  The area has two buffers, the column's parity picking one, and
+//    one barrier a column: thread 0 waits for the reads of the column
+//    before's copies just before it, so the copies overlap the next
+//    column's work.  Bound by the bytes written, as K3's store pattern (P1
+//    piecewise) is.
 // P6 bisect (replaces tools/vpu_probe.py:bisect_probe).  P5's mix with one
 //    template flag a step of a ladder from the mix to K3
 //    (ops/vpu_probe_cuda.py: BISECT_STEPS), each rung adding one step:
@@ -102,7 +105,19 @@
 //    scan, at many rows a thread by the f64 work a row issues (the
 //    composition, the replay, the divide, the log), at one row a thread
 //    by the latency of each column's chain (scan, barriers, log, hand-off),
-//    which is what the rungs' increments measure.
+//    which is what the rungs' increments measure.  A branch from the top
+//    rung (ops/vpu_probe_cuda.py: branch()) has the top rung with each
+//    lever of LEVERS alone and with both, each lever moving work between
+//    warps with the top rung's arithmetic, so its values: storewarps (8 more warps take the
+//    store pass, log_pos, the Kahan pair and the two f32 stores of column
+//    j-1, from a double-buffered column of V in shared memory that the row
+//    warps fill where the store pass was, between the two barriers, handed
+//    over by full / empty named barriers, while the row warps go on with
+//    column j), early (one more warp polls, without the carry warp's
+//    __nanosleep, for the V entering the chunk from the end of the column
+//    before on, and hands it to the carry warp at a named barrier after
+//    the carry warp's scan, so a hop from chunk to chunk is the poll, that
+//    barrier, one multiply-add and the store).
 //
 // Every probe launches on the caller's stream and returns its
 // cudaGetLastError() as int.
@@ -453,17 +468,40 @@ overlap_kernel(float* __restrict__ v, float* __restrict__ s,
 
 // -- P5 / P6: K3's column mix, and the ladder from it to K3 -------------------
 
-// the steps of P6's ladder as template bits, in the ladder's order
+// the steps of P6's ladder as template bits, in the ladder's order; then
+// the levers of the branch from its top rung
 enum LadderStep : int {
   kStSmem = 1, kStXscratch = 2, kStInit = 4, kStVcarry = 8, kStBars = 16,
-  kStScan = 32, kStDivPos = 64, kStLogPos = 128, kStHandoff = 256
+  kStScan = 32, kStDivPos = 64, kStLogPos = 128, kStHandoff = 256,
+  kStStoreWarps = 512, kStEarly = 1024
 };
+constexpr int kStTop = 511;                 // the ladder's top: all nine steps
 constexpr int kBarMaps = 1, kBarCarry = 2;  // K3's named barriers
+// storewarps' hand-over of a column: a full and an empty barrier a buffer
+// (ids base + buffer), the row warps arriving at full and waiting at
+// empty, the store warps the other way round; early's poll warp hands the
+// carry warp the V entering the chunk at kBarPoll
+constexpr int kBarFull = 3, kBarEmpty = 5, kBarPoll = 7;
+constexpr int kStoreWarps = 8;            // vpu_probe_cuda.STORE_WARPS
+constexpr int kStoreThreads = kStoreWarps * 32;
+constexpr int kHandThreads = kRowThreads + kStoreThreads;
 constexpr double kTiny = 1e-300;            // log_pos's floor for |V|
 
-// K3's named barrier ``id`` over the row warps and the carry warp
-__device__ __forceinline__ void bar(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kCarryThreads) : "memory");
+// a P5 / P6 block's threads from barriers on (below them the row warps
+// alone; vpu_probe_cuda.mix_threads): the row warps, the carry warp,
+// storewarps' store warps, early's poll warp
+constexpr int mix_block(int steps) {
+  return kCarryThreads + ((steps & kStStoreWarps) ? kStoreThreads : 0) +
+         ((steps & kStEarly) ? 32 : 0);
+}
+
+// named barrier ``id`` over ``count`` threads (K3's: the row warps and
+// the carry warp), waiting or arriving only
+__device__ __forceinline__ void bar(int id, int count = kCarryThreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 struct Map {                                // x -> A x + B
@@ -514,13 +552,14 @@ __device__ __forceinline__ void fence_async_shared() {
 
 // Dynamic shared memory, per block: the row state at vslot(i) (chunk +
 // chunk / 16 f64), with xscratch the Kahan pair (chunk f64 each), the piece
-// table (7 x pieces f32, padded to 16 bytes), with staged the staging area
-// (chunk f32 of V, then chunk of Srel).  Scratch from the wrapper: wsink
-// [chunks][512][2] f64 (vcarry), xsink [n] f64 (xscratch), and for the
-// hand-off the halo [chunks-1][m] f64 filled with NaN and the ticket, one
-// zeroed int32.
+// table (7 x pieces f32, padded to 16 bytes), then with staged the staging
+// area's two buffers (each chunk f32 of V, then chunk of Srel), with
+// storewarps two columns of V at vslot (f64).  Scratch from the wrapper:
+// wsink [chunks][512][2] f64 (vcarry), xsink [n] f64 (xscratch), and for
+// the hand-off the halo [chunks-1][m] f64 filled with NaN and the ticket,
+// one zeroed int32.
 template <int kSteps, bool kStaged>
-__global__ void __launch_bounds__(kCarryThreads, 1)
+__global__ void __launch_bounds__(mix_block(kSteps), 1)
 mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
            float* __restrict__ s, double* __restrict__ wsink,
            double* __restrict__ xsink, double* halo, int* ticket, int n,
@@ -534,16 +573,26 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
   constexpr bool kD = kSteps & kStDivPos;
   constexpr bool kL = kSteps & kStLogPos;
   constexpr bool kH = kSteps & kStHandoff;
+  constexpr bool kW = kSteps & kStStoreWarps;
+  constexpr bool kE = kSteps & kStEarly;
   static_assert(!kStaged || kSteps == 0, "staged: P5 alone");
   static_assert(!kH || (kB && kS), "the hand-off needs the carry warp and "
                                    "the scan");
+  static_assert(kSteps <= kStTop || (kSteps & kStTop) == kStTop,
+                "the levers start from the top rung");
+  // kBarCarry's threads: with early the poll warp too
+  constexpr int kCarryCount = kCarryThreads + (kE ? 32 : 0);
+  constexpr int kPollWarp = kRowWarps + 1 + (kW ? kStoreWarps : 0);
   extern __shared__ __align__(16) double dyn[];
   __shared__ double wA[kRowWarps], wB[kRowWarps];   // the warps' maps
   __shared__ double xA[kRowWarps], xB[kRowWarps];   // the maps before each
   __shared__ double cin;                            // V entering the chunk
+  __shared__ double pin;                            // early's poll warp's
   __shared__ int next;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;          // kRowWarps: the carry warp
+  // kRowWarps: the carry warp; above it storewarps' store warps, then
+  // early's poll warp (kPollWarp)
+  const int warp = threadIdx.x >> 5;
   const int seg = chunk / kRowWarps;          // rows a warp
   const int k = seg / 32;                     // rows a thread
   const int w0 = warp * seg;                  // this warp's first row
@@ -553,6 +602,10 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
   double* scomp = sacc + chunk;
   float* tab = reinterpret_cast<float*>(sacc + (kX ? 2 * chunk : 0));
   float* stage = tab + ((7 * pieces + 3) & ~3);
+  double* vcol = reinterpret_cast<double*>(stage);   // storewarps
+  // the block's columns handed on so far (staged, storewarps): the buffer
+  // is its parity
+  int seq = 0;
 
   // the piece values of the 7 column residues: acc_0 = 1 + t (+ a),
   // acc_{p+1} = acc_p 0.9999 + 1e-5 (one f32 FMA) or, vcarry, acc_p 0.9999
@@ -598,30 +651,54 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
     }
     __syncthreads();
 
+    // the hand-off's halo: the V entering the chunk at column j, polled
+    // for (its first value in the chunk before), and the chunk's own
+    const double* hin =
+        kH ? halo + static_cast<size_t>(c > 0 ? c - 1 : 0) * m : halo;
+    double* hout = kH ? halo + static_cast<size_t>(c) * m : halo;
+    auto poll = [&](int j) {
+      double x;
+      for (unsigned polls = 0;; ++polls) {
+        x = load_relaxed(hin + j);
+        if (!isnan(x)) break;
+        if (polls > (1u << 27)) __trap();
+        if (!kE) __nanosleep(64);          // K3's poll; early's spins
+      }
+      return x;
+    };
+
+    if (kE && warp == kPollWarp) {
+      // early's poll warp: from the end of column j-1 on, the V entering
+      // the chunk at column j, handed to the carry warp at kBarPoll
+      for (int j = 0; j < m; ++j) {
+        if (lane == 0) pin = c > 0 ? poll(j) : 0.0;
+        bar_arrive(kBarPoll, 64);
+        bar(kBarCarry, kCarryCount);
+      }
+      continue;
+    }
+
     if (kB && warp == kRowWarps) {
       // the carry warp: with the hand-off, per column, the V entering the
       // chunk (V at the last row of the chunk before), then the chunk's map
       // from the warps', the chunk's last V published, and each warp the
-      // maps of the warps before it
-      const double* hin =
-          kH ? halo + static_cast<size_t>(c > 0 ? c - 1 : 0) * m : halo;
-      double* hout = kH ? halo + static_cast<size_t>(c) * m : halo;
+      // maps of the warps before it.  With early the warps' maps are
+      // scanned before the V entering the chunk is taken from the poll
+      // warp, so that a hop from chunk to chunk holds the poll, a barrier,
+      // one multiply-add and the store
       for (int j = 0; j < m; ++j) {
         double carry = 0.0;
-        if (kH && lane == 0 && c > 0) {
-          for (unsigned polls = 0;; ++polls) {
-            carry = load_relaxed(hin + j);
-            if (!isnan(carry)) break;
-            if (polls > (1u << 27)) __trap();
-            __nanosleep(64);
-          }
-        }
+        if (kH && !kE && lane == 0 && c > 0) carry = poll(j);
         bar(kBarMaps);
         if (kH) {
           Map p = lane < kRowWarps ? Map{wA[lane], wB[lane]} : Map{1.0, 0.0};
           p = scan_maps<kRowWarps>(p, lane);
           const double ba = __shfl_sync(kFull, p.A, kRowWarps - 1);
           const double bb = __shfl_sync(kFull, p.B, kRowWarps - 1);
+          if (kE) {
+            bar(kBarPoll, 64);
+            carry = pin;
+          }
           if (lane == 0) {
             if (c + 1 < chunks)
               store_relaxed(hout + j, add_rn(mul_rn(ba, carry), bb));
@@ -632,7 +709,56 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
             xB[lane + 1] = p.B;
           }
         }
-        bar(kBarCarry);
+        bar(kBarCarry, kCarryCount);
+      }
+      continue;
+    }
+
+    // V and Srel of row q of the chunk in column jc, to the tables or the
+    // staging buffer ``sb``; with xscratch the Kahan pair moved on by
+    // Srel's term
+    auto store_row = [&](int jc, int q, double val, float* sb) {
+      const int r = R0 + q;
+      if (r >= n) return;
+      const double term = kL ? log_pos(fmax(fabs(val), kTiny)) : val;
+      double sum = term;
+      if (kX) {
+        const double sa = sacc[q];
+        const double y = add_rn(term, -scomp[q]);
+        const double t = add_rn(sa, y);
+        scomp[q] = add_rn(add_rn(t, -sa), -y);
+        sacc[q] = t;
+        sum = t;
+      }
+      const float fv = static_cast<float>(val);
+      const float fs = static_cast<float>(kL ? sum : add_rn(val, 1.0));
+      if (kStaged) {
+        sb[q] = fv;
+        sb[chunk + q] = fs;
+      } else {
+        const size_t o = static_cast<size_t>(jc) * n + r;
+        v[o] = fv;
+        s[o] = fs;
+      }
+    };
+
+    if (kW && warp > kRowWarps && warp <= kRowWarps + kStoreWarps) {
+      // the store warps: column j's V from the row warps' buffer, one row a
+      // lane, its log, Kahan pair and the two f32 stores, while the row
+      // warps compute column j + 1
+      for (int j = 0; j < m; ++j, ++seq) {
+        const double* vb = vcol + (seq & 1) * vslot(chunk);
+        bar(kBarFull + (seq & 1), kHandThreads);
+#pragma unroll 2
+        for (int q = threadIdx.x - kCarryThreads; q < chunk;
+             q += kStoreThreads)
+          store_row(j, q, vb[vslot(q)], nullptr);
+        bar_arrive(kBarEmpty + (seq & 1), kHandThreads);
+      }
+      if (kX) {
+        for (int q = threadIdx.x - kCarryThreads; q < chunk;
+             q += kStoreThreads)
+          if (R0 + q < n) xsink[R0 + q] = sacc[q];
       }
       continue;
     }
@@ -652,55 +778,42 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
       const double b = mul_rn(add_rn(1.0, -a), out);
       return {live ? a : 1.0, live ? b : 0.0};
     };
-    // V and Srel of row q of the chunk in column jc, to the tables or the
-    // staging area; with xscratch the Kahan pair moved on by Srel's term
-    auto store_row = [&](int jc, int q, double val) {
-      const int r = R0 + q;
-      if (r >= n) return;
-      const double term = kL ? log_pos(fmax(fabs(val), kTiny)) : val;
-      double sum = term;
-      if (kX) {
-        const double sa = sacc[q];
-        const double y = add_rn(term, -scomp[q]);
-        const double t = add_rn(sa, y);
-        scomp[q] = add_rn(add_rn(t, -sa), -y);
-        sacc[q] = t;
-        sum = t;
-      }
-      const float fv = static_cast<float>(val);
-      const float fs = static_cast<float>(kL ? sum : add_rn(val, 1.0));
-      if (kStaged) {
-        stage[q] = fv;
-        stage[chunk + q] = fs;
-      } else {
-        const size_t o = static_cast<size_t>(jc) * n + r;
-        v[o] = fv;
-        s[o] = fs;
-      }
-    };
     // column jc, one row a lane (the lane's row is the thread's for k = 1,
-    // whose V is in vreg)
+    // whose V is in vreg).  staged: column jc's buffer (its parity) is
+    // written while the copies of column jc - 1 may still read the other.
+    // Before the barrier thread 0 waits until they are done, so that the
+    // buffer the column after this one writes is free once the threads
+    // pass the barrier: the copies had column jc's work to read it in
     auto store_column = [&](int jc, double vreg) {
-      if (kStaged) {
-        if (threadIdx.x == 0) bulk_wait_read();
-        __syncthreads();
-      }
+      float* sb = kStaged ? stage + (seq & 1) * 2 * chunk : stage;
 #pragma unroll 4
       for (int i = 0; i < k; ++i) {
         const int q = w0 + 32 * i + lane;
-        store_row(jc, q, k == 1 ? vreg : st[vslot(q)]);
+        store_row(jc, q, k == 1 ? vreg : st[vslot(q)], sb);
       }
       if (kStaged) {
         fence_async_shared();
+        if (threadIdx.x == 0) bulk_wait_read();
         __syncthreads();
         if (threadIdx.x == 0) {
           const int bytes = 4 * min(chunk, n - R0);
-          bulk_store(v + static_cast<size_t>(jc) * n + R0, stage, bytes);
-          bulk_store(s + static_cast<size_t>(jc) * n + R0, stage + chunk,
+          bulk_store(v + static_cast<size_t>(jc) * n + R0, sb, bytes);
+          bulk_store(s + static_cast<size_t>(jc) * n + R0, sb + chunk,
                      bytes);
           bulk_commit();
         }
       }
+      if (kStaged) ++seq;
+    };
+    // storewarps: the thread's rows of column jc (its V, from vreg for k
+    // = 1) to the store warps' buffer, once they are done with the column
+    // it held two columns before
+    auto hand_column = [&](double vreg) {
+      double* vb = vcol + (seq & 1) * vslot(chunk);
+      if (seq >= 2) bar(kBarEmpty + (seq & 1), kHandThreads);
+      for (int i = 0; i < k; ++i)
+        vb[vslot(t0 + i)] = k == 1 ? vreg : st[vslot(t0 + i)];
+      bar_arrive(kBarFull + (seq++ & 1), kHandThreads);
     };
 
     double vreg = 0.0, w1 = 0.0, w2 = 0.0;
@@ -724,14 +837,18 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
       }
       if (kB) bar(kBarMaps); else __syncwarp();
 
-      // 2. column j-1 to the tables
-      if (j > 0) store_column(j - 1, vreg);
+      // 2. column j-1 to the tables (storewarps: to the store warps, in the
+      // shadow of the carry warp's scan as the store pass was)
+      if (j > 0) {
+        if (kW) hand_column(vreg);
+        else store_column(j - 1, vreg);
+      }
       double ea = 1.0, eb = 0.0;
       if (kS) {
         ea = __shfl_up_sync(kFull, incl.A, 1);
         eb = __shfl_up_sync(kFull, incl.B, 1);
       }
-      if (kB) bar(kBarCarry); else __syncwarp();
+      if (kB) bar(kBarCarry, kCarryCount); else __syncwarp();
 
       // 3. column j into the row state: the mix, or the rows replayed from
       // the value entering the thread (0 at each warp's first row without
@@ -760,39 +877,43 @@ mix_kernel(const float* __restrict__ a_ptr, float* __restrict__ v,
     }
     // 4. the last column, and the sinks
     __syncwarp();
-    store_column(m - 1, vreg);
+    if (kW) hand_column(vreg);
+    else store_column(m - 1, vreg);
     if (kV) {
       double* w = wsink + (static_cast<size_t>(c) * kRowThreads +
                            threadIdx.x) * 2;
       w[0] = w1;
       w[1] = w2;
     }
-    if (kX) {
+    if (kX && !kW) {
       for (int i = 0; i < k; ++i) {
         const int q = w0 + 32 * i + lane;
         if (R0 + q < n) xsink[R0 + q] = sacc[q];
       }
     }
   }
+  if (kW && warp < kRowWarps) {
+    // the store warps' arrivals at empty for the block's last two columns
+    if (seq >= 2) bar(kBarEmpty + (seq & 1), kHandThreads);
+    if (seq >= 1) bar(kBarEmpty + ((seq - 1) & 1), kHandThreads);
+  }
   if (kStaged && threadIdx.x == 0) bulk_wait();
 }
 
-// the ladder's rungs: the steps' bits, each rung adding the next
+// the ladder's rungs, each adding the next step, and the branch's, the
+// top rung and its levers: the steps' bits
 template <bool kStaged>
 const void* mix_by_steps(int steps) {
-  switch (steps) {
-#define STB_RUNG(b) \
-  case b: return reinterpret_cast<const void*>(&mix_kernel<b, kStaged>);
-    STB_RUNG(0)
-#undef STB_RUNG
-    default: break;
-  }
+  if (steps == 0)
+    return reinterpret_cast<const void*>(&mix_kernel<0, kStaged>);
   if constexpr (!kStaged) {
     switch (steps) {
 #define STB_RUNG(b) \
   case b: return reinterpret_cast<const void*>(&mix_kernel<b, false>);
       STB_RUNG(1) STB_RUNG(3) STB_RUNG(7) STB_RUNG(15) STB_RUNG(31)
       STB_RUNG(63) STB_RUNG(127) STB_RUNG(255) STB_RUNG(511)
+      STB_RUNG(kStTop | kStStoreWarps) STB_RUNG(kStTop | kStEarly)
+      STB_RUNG(kStTop | kStStoreWarps | kStEarly)
 #undef STB_RUNG
       default: break;
     }
@@ -802,9 +923,10 @@ const void* mix_by_steps(int steps) {
 
 // the dynamic shared memory a P5 / P6 block needs
 long long mix_smem(int steps, int staged, int chunk, int pieces) {
-  return 8LL * (chunk + chunk / 16) +
-         ((steps & kStXscratch) ? 16LL * chunk : 0) +
-         4LL * ((7LL * pieces + 3) & ~3LL) + (staged ? 8LL * chunk : 0);
+  const long long slots = chunk + chunk / 16;
+  return 8 * slots + ((steps & kStXscratch) ? 16LL * chunk : 0) +
+         4LL * ((7LL * pieces + 3) & ~3LL) + (staged ? 16LL * chunk : 0) +
+         ((steps & kStStoreWarps) ? 16 * slots : 0);
 }
 
 }  // namespace
@@ -922,9 +1044,10 @@ extern "C" int stb_vpu_overlap(int alu, int store, float* v, float* s,
 }
 
 // P5 (steps 0, staged 0 or 1) and P6's rungs (steps: the bits of
-// BISECT_STEPS' first i steps, staged 0).  a: the discount (smem), wsink
-// (vcarry), xsink (xscratch), halo and ticket (handoff); ``pieces`` covers
-// the chunks' rows, ``smem`` the block's dynamic shared memory.
+// BISECT_STEPS' first i steps, or of all nine and LEVERS' bits, staged
+// 0).  a: the discount (smem), wsink (vcarry), xsink (xscratch), halo and
+// ticket (handoff); ``pieces`` covers the chunks' rows, ``smem`` the
+// block's dynamic shared memory.
 extern "C" int stb_vpu_mix(int steps, int staged, const float* a, float* v,
                            float* s, double* wsink, double* xsink,
                            double* halo, int* ticket, int n, int m,
@@ -946,7 +1069,7 @@ extern "C" int stb_vpu_mix(int steps, int staged, const float* a, float* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (steps & kStBars) ? kCarryThreads : kRowThreads;
+  const int threads = (steps & kStBars) ? mix_block(steps) : kRowThreads;
   void* args[] = {&a, &v, &s, &wsink, &xsink, &halo, &ticket, &n, &m,
                   &chunk, &chunks, &piece, &pieces, &slab};
   err = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem,

@@ -22,11 +22,17 @@ None computes a function of the system:
 * P5 ``mix``: K3's memory mix in K3's residency, its f64 row state in
   shared memory moved on by out = state 0.999 + acc_p each column and the
   column stored one row a lane (V = out, Srel = out + 1, f32), or in
-  ``staged`` mode through a staging area and one bulk copy a table;
+  ``staged`` mode through a staging area of two buffers, one barrier and
+  one bulk copy a table a column;
 * P6 ``bisect``: P5 with the steps of BISECT_STEPS, a ladder from the mix
   to K3: the TPU probe's flags (smem, xscratch, initbranch, vcarry; its
   ``cost`` has no counterpart) and then K3's own structure (barriers,
-  scan, div_pos, log_pos, handoff); ``ladder()`` lists its rungs.
+  scan, div_pos, log_pos, handoff); ``ladder()`` lists its rungs.  A
+  branch from its top rung (``branch()``) adds the LEVERS, each alone and
+  both: storewarps (the store pass in warps of its own), early (the
+  hand-off's poll in a warp of its own, without a sleep, taken after the
+  carry warp's scan); each moves work between warps and gives the top
+  rung's values bitwise.
 
 Each ``*_cuda`` wrapper checks its arguments, allocates its outputs with
 ``torch.empty`` (or takes them in ``out``), launches on the current stream
@@ -56,11 +62,16 @@ __all__ = ["PROBES", "LAUNCHES", "SOURCES", "build", "load",
            "alu_blocks", "alu_cuda", "alu_ref", "SMEM_MODES",
            "headline_chunk", "smem_rows", "smem_cuda", "smem_ref",
            "overlap_cuda", "overlap_ref", "MIX_MODES", "TPU_STEPS",
-           "K3_STEPS", "BISECT_STEPS", "ladder", "steps_bits",
+           "K3_STEPS", "BISECT_STEPS", "LEVERS", "ladder", "branch",
+           "probe_name", "mix_threads", "steps_bits",
            "bisect_exact", "mix_smem", "mix_plan", "mix_errors", "MixOut",
            "mix_cuda", "mix_ref", "bisect_cuda", "bisect_ref"]
 
-PROBES = ("write_floor", "alu", "smem", "overlap", "mix", "bisect")
+# the probes' kernels by name (P5 staged and the branch's rungs apart from
+# P5 mix and P6's ladder: probe_name)
+PROBES = ("write_floor", "alu", "smem", "overlap", "mix", "bisect",
+          "mix_staged", "bisect_storewarps", "bisect_early",
+          "bisect_storewarps_early")
 LAUNCHES = {name: 0 for name in PROBES}
 SOURCES = {"vpu_probe": Path(__file__).resolve().parent.parent / "csrc"
            / "vpu_probe.cu"}
@@ -96,6 +107,8 @@ _ALU_RTOL_DTYPE = {torch.float32: 1e-5, torch.float64: 1e-12}
 SMEM_MODES = ("load1", "load8", "store1", "store8")
 ROW_THREADS = 512                       # K3's row threads (16 warps)
 SMEM_MAX = 232448                       # shared memory a block may have
+THREADS_MAX = 1024                      # threads a block may have
+STORE_WARPS = 8                         # storewarps' store warps
 
 MIX_MODES = ("mix", "staged")
 # P6's ladder, in order: the TPU probe's flags (its ``cost``, XLA's
@@ -103,6 +116,9 @@ MIX_MODES = ("mix", "staged")
 TPU_STEPS = ("smem", "xscratch", "initbranch", "vcarry")
 K3_STEPS = ("barriers", "scan", "div_pos", "log_pos", "handoff")
 BISECT_STEPS = TPU_STEPS + K3_STEPS
+# the branch from the ladder's top rung: levers that move work between
+# warps and leave every value as the top rung's
+LEVERS = ("storewarps", "early")
 SLAB = 32 * 128                         # the TPU probe's (S, 128) slab, S = 32
 A_SMEM = 0.5                            # the TPU probe's scalar operand
 TINY = 1e-300                           # log_pos's floor for |V|
@@ -457,17 +473,39 @@ def ladder() -> list:
     return [BISECT_STEPS[:i] for i in range(1, len(BISECT_STEPS) + 1)]
 
 
+def branch() -> list:
+    """The branch from the ladder's top rung: BISECT_STEPS with each
+    lever of LEVERS alone, then with both."""
+    return [BISECT_STEPS + (lever,) for lever in LEVERS] + [
+        BISECT_STEPS + LEVERS]
+
+
 def _steps(fn: str, steps) -> tuple:
     steps = tuple(steps)
-    if len(set(steps)) != len(steps) or not set(steps) <= set(BISECT_STEPS):
+    every = BISECT_STEPS + LEVERS
+    if len(set(steps)) != len(steps) or not set(steps) <= set(every):
         raise ValueError(f"{fn}: steps {steps}, each at most once of "
-                         f"{BISECT_STEPS}")
-    return tuple(x for x in BISECT_STEPS if x in steps)
+                         f"{every}")
+    return tuple(x for x in every if x in steps)
 
 
 def steps_bits(steps) -> int:
-    """The kernel's template bits of ``steps``: bit i for BISECT_STEPS[i]."""
-    return sum(1 << BISECT_STEPS.index(x) for x in _steps("steps_bits", steps))
+    """The kernel's template bits of ``steps``: bit i for step i of
+    BISECT_STEPS + LEVERS."""
+    every = BISECT_STEPS + LEVERS
+    return sum(1 << every.index(x) for x in _steps("steps_bits", steps))
+
+
+def probe_name(steps=(), mode: str = "mix") -> str:
+    """The name (a key of LAUNCHES, and of chip_smoke.py's kernels line)
+    of a P5 / P6 launch: ``mix`` and ``mix_staged`` for P5's modes,
+    ``bisect`` for the ladder's rungs, ``bisect_<its levers>`` for the
+    branch's."""
+    steps = _steps("probe_name", steps)
+    if not steps:
+        return "mix" if mode == "mix" else f"mix_{mode}"
+    levers = [x for x in steps if x in LEVERS]
+    return "_".join(["bisect"] + levers)
 
 
 def bisect_exact(steps) -> bool:
@@ -476,13 +514,24 @@ def bisect_exact(steps) -> bool:
     return not {"div_pos", "log_pos"} & set(steps)
 
 
+def mix_threads(steps) -> int:
+    """A P5 / P6 block's threads, as the kernel launches it: the 16 row
+    warps, from barriers on the carry warp, with storewarps STORE_WARPS
+    store warps, with early a poll warp."""
+    has = set(_steps("mix_threads", steps)).__contains__
+    return (ROW_THREADS + (32 if has("barriers") else 0)
+            + (32 * STORE_WARPS if has("storewarps") else 0)
+            + (32 if has("early") else 0))
+
+
 def mix_smem(steps, staged: bool, chunk: int, pieces: int) -> int:
     """A P5 / P6 block's dynamic shared memory: the row state (K3's 8.5
-    bytes a row), xscratch's pair (16 more), the piece table, staged's
-    staging area (8 more)."""
-    return (8 * (chunk + chunk // 16) + (16 * chunk if "xscratch" in steps
-                                         else 0)
-            + 4 * ((7 * pieces + 3) & ~3) + (8 * chunk if staged else 0))
+    bytes a row), xscratch's pair (16 more), the piece table, staged's two
+    staging buffers (16 more), storewarps' two columns of V (17 more)."""
+    slots = chunk + chunk // 16
+    return (8 * slots + (16 * chunk if "xscratch" in steps else 0)
+            + 4 * ((7 * pieces + 3) & ~3) + (16 * chunk if staged else 0)
+            + (16 * slots if "storewarps" in steps else 0))
 
 
 def _fma32(a, b, c):
@@ -576,8 +625,8 @@ def bisect_ref(m: int, n: int, steps=(), dtype=torch.float64,
     rvec = (r mod slab) H + r div slab, H = ceil(n / slab) (the TPU's H
     where slab divides n); smem's scalar is A_SMEM.  Without the scan,
     div_pos has no effect on the values (A is read by the scan alone) nor
-    has handoff; barriers never do."""
-    steps = _steps("bisect_ref", steps)
+    has handoff; barriers and the LEVERS never do."""
+    steps = tuple(x for x in _steps("bisect_ref", steps) if x not in LEVERS)
     _check_shape("bisect_ref", n, m)
     if piece < 32 or slab < 1:
         raise ValueError(f"bisect_ref: piece {piece} < 32 or slab {slab} < 1")
@@ -669,8 +718,13 @@ def mix_plan(fn: str, steps, staged: bool, m: int, n: int, piece: int,
     """(cols_plan, pieces, shared memory) of a P5 / P6 launch on ``sms``
     SMs; a ValueError for a shape, piece or (steps, chunk) the kernel does
     not take: staged needs n % 4 == 0 (whole 16-byte bulk copies), and a
-    block's shared memory must fit beside MIX_STATIC."""
+    block's shared memory must fit beside MIX_STATIC (storewarps' does
+    not at chunks of 8192, (2^20, 1024)) and its threads within
+    THREADS_MAX."""
     _check_shape(fn, n, m)
+    if mix_threads(steps) > THREADS_MAX:
+        raise ValueError(f"{fn}: {mix_threads(steps)} threads a block, more "
+                         f"than {THREADS_MAX}")
     if piece < 32:
         raise ValueError(f"{fn}: piece {piece} < 32 rows")
     if staged and n % 4:
@@ -689,10 +743,12 @@ def mix_plan(fn: str, steps, staged: bool, m: int, n: int, piece: int,
 
 
 def _mix_launch(name: str, steps, staged: bool, m: int, n: int, piece: int,
-                a, device, out) -> MixOut:
+                a, device, out, blocks=None) -> MixOut:
     fn = f"{name}_cuda"
     plan, pieces, smem = mix_plan(fn, steps, staged, m, n, piece,
                                   _sms(device))
+    if blocks is not None and not 1 <= blocks <= plan.blocks:
+        raise ValueError(f"{fn}: blocks {blocks} outside 1..{plan.blocks}")
     has = set(steps).__contains__
     out_v, out_s, out_w, out_x = out if out is not None else (None,) * 4
     v = _check_out(fn, out_v, (m, n), torch.float32, device)
@@ -712,17 +768,20 @@ def _mix_launch(name: str, steps, staged: bool, m: int, n: int, piece: int,
                           device=device)
         ticket = torch.zeros(1, dtype=torch.int32, device=device)
     ptr = (lambda x: None if x is None else x.data_ptr())
-    _launch(name, device, "stb_vpu_mix", steps_bits(steps), int(staged),
+    _launch(probe_name(steps, "staged" if staged else "mix"), device,
+            "stb_vpu_mix", steps_bits(steps), int(staged),
             ptr(a) if has("smem") else None, v.data_ptr(), s.data_ptr(),
             ptr(w), ptr(xs), ptr(halo), ptr(ticket), n, m, plan.chunk,
-            plan.chunks, plan.blocks, smem, piece, pieces, SLAB)
+            plan.chunks, plan.blocks if blocks is None else blocks, smem,
+            piece, pieces, SLAB)
     return MixOut(v, s, w, xs)
 
 
 def mix_cuda(m: int, n: int, mode: str = "mix", piece: int = PIECE,
              device="cuda", out=None):
-    """Launch P5 on cols_plan's geometry; the same values as mix_ref(dtype
-    = float64).  ``out`` (V, Srel) takes the outputs' place."""
+    """Launch P5 in a mode of MIX_MODES on cols_plan's geometry; the same
+    values as mix_ref(dtype = float64).  ``out`` (V, Srel) takes the
+    outputs' place."""
     device = _cuda("mix_cuda", device)
     if mode not in MIX_MODES:
         raise ValueError(f"mix_cuda: mode {mode!r}")
@@ -732,15 +791,20 @@ def mix_cuda(m: int, n: int, mode: str = "mix", piece: int = PIECE,
 
 
 def bisect_cuda(m: int, n: int, steps, piece: int = PIECE, a=None,
-                device="cuda", out=None) -> MixOut:
-    """Launch P6 at a rung of ladder() (the kernel is built for those);
-    the same values as bisect_ref(dtype=float64), within mix_errors'
-    tolerance.  ``a``: a buffer of one f32 on the device holding A_SMEM,
-    smem's scalar, to reuse across launches (made if None); ``out`` (V,
-    Srel, w, xs) takes the outputs' place."""
+                device="cuda", out=None, blocks=None) -> MixOut:
+    """Launch P6 at a rung of ladder() or branch() (the kernel is built for
+    those); the same values as bisect_ref(dtype=float64), within
+    mix_errors' tolerance (a branch rung: bitwise the top rung's).  ``a``:
+    a buffer of one f32 on the device holding A_SMEM, smem's scalar, to
+    reuse across launches (made if None); ``out`` (V, Srel, w, xs) takes
+    the outputs' place; ``blocks`` fewer blocks than cols_plan's, each
+    taking several chunks in turn (the storewarps rungs fit only where
+    cols_plan gives at most one chunk an SM)."""
     device = _cuda("bisect_cuda", device)
     steps = _steps("bisect_cuda", steps)
-    if steps not in ladder():
+    if steps not in ladder() + branch():
         raise ValueError(f"bisect_cuda: {steps} is not a rung of the "
-                         f"ladder {BISECT_STEPS}")
-    return _mix_launch("bisect", steps, False, m, n, piece, a, device, out)
+                         f"ladder {BISECT_STEPS} nor of its branch "
+                         f"{LEVERS}")
+    return _mix_launch("bisect", steps, False, m, n, piece, a, device, out,
+                       blocks)

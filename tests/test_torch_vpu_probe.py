@@ -580,7 +580,7 @@ def test_ladder_and_bits():
     assert vp.steps_bits(("scan", "smem")) == 33
     assert [vp.bisect_exact(r) for r in rungs] == [True] * 6 + [False] * 3
     assert [name for name, _, _ in tool.ladder_rungs()] == (
-        ["mix"] + list(vp.BISECT_STEPS) + ["staged"])
+        ["mix"] + list(vp.BISECT_STEPS) + ["staged"] + list(tool.BRANCH))
 
 
 @pytest.mark.parametrize("steps,staged,n,fits", [
@@ -589,13 +589,13 @@ def test_ladder_and_bits():
     (("smem", "xscratch"), False, 1 << 16, True),
     (("xscratch",), True, 1 << 20, False)])
 def test_mix_plan_shared_memory(steps, staged, n, fits):
-    """K3's 8.5 bytes a row of state, 16 more with xscratch's pair, 8 more
-    with staged's area (134 KB at a chunk of 8192), and the piece table;
-    a (steps, chunk) that does not fit is refused."""
+    """K3's 8.5 bytes a row of state, 16 more with xscratch's pair, 16
+    more with staged's two buffers (201 KB at a chunk of 8192), and the
+    piece table; a (steps, chunk) that does not fit is refused."""
     plan = sc.cols_plan(n, 1024, 132)
     pieces = -(-plan.chunks * plan.chunk // vp.PIECE)
     want = (8.5 + (16 if "xscratch" in steps else 0)
-            + (8 if staged else 0)) * plan.chunk + 4 * (
+            + (16 if staged else 0)) * plan.chunk + 4 * (
                 (7 * pieces + 3) & ~3)
     assert vp.mix_smem(steps, staged, plan.chunk, pieces) == want
     if fits:
@@ -605,7 +605,7 @@ def test_mix_plan_shared_memory(steps, staged, n, fits):
         with pytest.raises(ValueError, match="shared memory"):
             vp.mix_plan("f", steps, staged, 1024, n, vp.PIECE, 132)
     if n == 1 << 20 and staged and not steps:
-        assert 130_000 < want < 140_000
+        assert 200_000 < want < 210_000
 
 
 def test_mix_plan_refuses():
@@ -616,6 +616,146 @@ def test_mix_plan_refuses():
     with pytest.raises(ValueError, match="shared memory"):
         vp.mix_plan("f", ("smem", "xscratch"), False, 4, 1 << 21, 1000, 132)
     assert vp.mix_plan("f", (), True, 9, 40000, 1000, 132)[0].chunks == 79
+
+
+def test_branch_rungs_and_bits():
+    """The branch from the top rung: the nine steps with each lever alone
+    (bits 512 and 1024 above the nine steps'), then with both; each
+    launch's name; each rung's increment counted against the top rung."""
+    rungs = vp.branch()
+    assert rungs == [vp.BISECT_STEPS + (x,) for x in vp.LEVERS] + [
+        vp.BISECT_STEPS + vp.LEVERS]
+    assert vp.LEVERS == ("storewarps", "early")
+    assert [vp.steps_bits(r) for r in rungs] == [1023, 1535, 2047]
+    assert vp.steps_bits(("early", "smem")) == 1025
+    assert not any(vp.bisect_exact(r) for r in rungs)
+    assert [vp.probe_name(r) for r in rungs] == [
+        "bisect_storewarps", "bisect_early", "bisect_storewarps_early"]
+    assert tool.BRANCH == ("storewarps", "early", "storewarps_early")
+    assert vp.probe_name(vp.BISECT_STEPS) == vp.probe_name(("smem",)) \
+        == "bisect"
+    assert [vp.probe_name((), mode) for mode in vp.MIX_MODES] == [
+        "mix", "mix_staged"]
+    assert set(vp.PROBES) >= {vp.probe_name(r) for r in vp.ladder() + rungs}
+    assert "mix_staged" in vp.PROBES
+    before = tool.rung_before()
+    assert before["smem"] == "mix" and before["handoff"] == "log_pos"
+    assert [before[x] for x in tool.BRANCH] == ["handoff"] * 3
+    assert not set(vp.MIX_MODES) & set(before)
+    assert tool.TOP == "handoff" and all(map(tool.in_branch, tool.BRANCH))
+    assert not tool.in_branch(tool.TOP)
+    with pytest.raises(ValueError, match="each at most once"):
+        vp.steps_bits(("early", "early"))
+
+
+@pytest.mark.parametrize("steps", vp.branch(), ids=tool.BRANCH)
+def test_branch_plain_version_is_the_top_rungs(steps):
+    """A lever moves work between warps and changes no arithmetic: a
+    branch rung's plain version is bisect_ref at all nine steps, exactly,
+    at 2 chunks of 1536 rows (the second cut short)."""
+    got = vp.bisect_ref(4, 3000, steps, piece=1000, sms=2)
+    want = vp.bisect_ref(4, 3000, vp.BISECT_STEPS, piece=1000, sms=2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert vp.mix_errors(got, want, steps) == (0.0, True)
+
+
+@pytest.mark.parametrize("steps,staged,n,fits", [
+    (vp.BISECT_STEPS, False, 1 << 16, True),
+    (vp.branch()[0], False, 1 << 16, True),
+    (vp.branch()[1], False, 1 << 16, True),
+    (vp.branch()[0], False, 1 << 20, False),
+    (vp.branch()[1], False, 1 << 20, True),
+    (vp.branch()[2], False, 1 << 16, True),
+    (vp.branch()[2], False, 1 << 20, False),
+    ((), True, 1 << 16, True), ((), True, 1 << 20, True),
+    ((), True, 1 << 21, True)],
+    ids=["top-2^16", "storewarps-2^16", "early-2^16", "storewarps-2^20",
+         "early-2^20", "both-2^16", "both-2^20", "staged-2^16",
+         "staged-2^20", "staged-2^21"])
+def test_branch_and_staged_plan(steps, staged, n, fits):
+    """storewarps' block: 16 row warps, the carry warp and 8 store warps
+    (800 threads, with early's poll warp 832; at most 1024), and two
+    columns of V at K3's vslot (17 bytes a row) beside the top rung's 24.5
+    and the piece table: 22 KB at (2^16, 1024), but 340 KB at 2^20 rows
+    (chunks of 8192), refused.  early's alone: the top rung's and a poll
+    warp (576 threads), no more shared memory.  staged's two staging buffers, 16 bytes a row, fit at both of
+    K3's shapes and at (2^21, 4)'s two waves of chunks (9216 rows)."""
+    plan = sc.cols_plan(n, 1024, 132)
+    pieces = -(-plan.chunks * plan.chunk // vp.PIECE)
+    table = 4 * ((7 * pieces + 3) & ~3)
+    slots = plan.chunk + plan.chunk // 16
+    want = (8 * slots + (16 * plan.chunk if steps else 0) + table
+            + (16 * plan.chunk if staged else 0)
+            + (16 * slots if "storewarps" in steps else 0))
+    assert vp.mix_smem(steps, staged, plan.chunk, pieces) == want
+    threads = vp.mix_threads(steps)
+    assert threads == (800 + 32 * ("early" in steps) if "storewarps" in steps
+                       else 576 if "early" in steps else 544 if steps
+                       else 512) <= vp.THREADS_MAX
+    assert tool.rung_fits(steps, staged, n, 1024, 132) == fits
+    if fits:
+        assert vp.mix_plan("f", steps, staged, 1024, n, vp.PIECE,
+                           132)[2] == want <= vp.SMEM_MAX - vp.MIX_STATIC
+    else:
+        with pytest.raises(ValueError, match=f"{steps[-1] if steps else ''}"
+                                             ".* at a chunk of 8192"
+                                             ".* shared memory"):
+            vp.mix_plan("f", steps, staged, 1024, n, vp.PIECE, 132)
+    if staged and n == 1 << 21:
+        assert plan.chunks > 132              # two waves of chunks
+
+
+def test_mix_plan_refuses_too_many_threads(monkeypatch):
+    """A block over 1024 threads is refused before the launch would be."""
+    monkeypatch.setattr(vp, "STORE_WARPS", 16)
+    assert vp.mix_threads(vp.branch()[0]) == 1056
+    with pytest.raises(ValueError, match="1056 threads"):
+        vp.mix_plan("f", vp.branch()[0], 0, 1024, 1 << 16, vp.PIECE, 132)
+    vp.mix_plan("f", vp.BISECT_STEPS, 0, 1024, 1 << 16, vp.PIECE, 132)
+
+
+def test_fill_period_on_synthetic_times():
+    """time = fill + m x period: two m give both exactly (no residual),
+    more m their least-squares line and its largest residual; fits() takes
+    every rung timed at every m of an n, and K3, and the hop as the fill
+    over the chunks."""
+    fill, period, resid = tool.fill_period([(1024, 0.25 + 1024 * 0.9e-3),
+                                            (256, 0.25 + 256 * 0.9e-3)])
+    assert fill == pytest.approx(0.25) and period == pytest.approx(0.9)
+    assert resid == pytest.approx(0, abs=1e-9)
+    ms_, t = [256, 512, 1024], [0.40, 0.71, 1.30]
+    fill, period, resid = tool.fill_period(list(zip(ms_, t)))
+    slope, icept = np.polyfit(ms_, t, 1)
+    assert period == pytest.approx(1e3 * slope)
+    assert fill == pytest.approx(icept)
+    assert resid == pytest.approx(
+        1e3 * max(abs(y - icept - slope * x) for x, y in zip(ms_, t)))
+    assert resid > 1                          # not a line: 0.31 then 0.59
+    for bad in ([(1024, 1.0)], [(256, 0.4), (256, 0.5)]):
+        with pytest.raises(ValueError, match="two or more m"):
+            tool.fill_period(bad)
+
+    def shape(m, times, k3):
+        return {"n": 65536, "m": m, "chunks": 128, "k3_ms": k3,
+                "rungs": {x: {"ms": t} for x, t in times.items()}}
+    long_ = {"65536": shape(1024, {"mix": 0.30, "handoff": 1.20,
+                                   "scan": 0.7, "early": 1.1}, 1.30)}
+    short = {"65536x256": shape(256, {"mix": 0.09, "handoff": 0.42,
+                                      "storewarps": 0.3, "early": 0.4},
+                                0.47),
+             "65536x512": shape(512, {"mix": 0.16, "handoff": 0.68,
+                                      "early": 0.63}, 0.75)}
+    got = tool.fits(long_, short)["65536"]
+    assert set(got) == {"K3", "mix", "handoff", "early"}
+    assert got["handoff"]["period_us"] == pytest.approx(
+        1e3 * np.polyfit([1024, 256, 512], [1.20, 0.42, 0.68], 1)[0])
+    assert got["handoff"]["resid_us"] < 1e-6   # on its line
+    assert got["early"]["resid_us"] > 1
+    assert got["K3"]["hop_us"] == pytest.approx(
+        got["K3"]["fill_ms"] * 1e3 / 128)
+    assert "handoff" in tool.fit_summary(got)
+    assert "residual" in tool.fit_summary(got)
+    assert tool.fits(long_, {})  == {}         # one m: nothing to fit
 
 
 def test_mix_errors_tolerances():
@@ -675,12 +815,14 @@ def test_tool_ladder_on_the_cpu():
 
 
 def _ladder_readings(times, noise=0.002, piecewise=0.2):
-    rungs = tool.ladder_rungs()
-    ms = dict(zip([name for name, _, _ in rungs], times))
+    """A shape's ladder readings, the rungs of ladder_rungs() in order as
+    far as ``times`` goes (the branch left out, as at 2^20
+    rows, unless given)."""
+    ms = dict(zip([name for name, _, _ in tool.ladder_rungs()], times))
     n, m = tool.K3_SHAPES[1]
     return {"n": n, "m": m, "piecewise_ms": piecewise,
-            "rungs": {name: {"ms": ms[name], "noise_ms": noise}
-                      for name, _, _ in rungs}}
+            "rungs": {name: {"ms": t, "noise_ms": noise}
+                      for name, t in ms.items()}}
 
 
 @pytest.mark.parametrize("drop,noise,ok", [
@@ -713,23 +855,73 @@ def test_impossible_ladder_faster_than_piecewise():
     assert not any("smem" in b for b in bad)
 
 
+def _branch_readings(branch, staged=0.25, noise=0.002):
+    """Readings at (2^16, 1024) with the branch: the ladder at times an
+    H100 reads, staged at ``staged``, the three branch rungs at
+    ``branch`` ms."""
+    times = [0.2875, 0.2866, 0.3165, 0.3166, 0.3284, 0.41, 0.6845, 0.7009,
+             0.907, 1.1565, staged] + list(branch)
+    return _ladder_readings(times, noise, piecewise=0.1704)
+
+
+@pytest.mark.parametrize("branch,staged,ok", [
+    ((1.10, 1.30, 1.20), 0.25, True),        # all slower: no finding
+    ((0.80, 0.70, 0.65), 0.25, True),
+    ((0.80, 0.20, 0.65), 0.25, False),       # under staged and mix
+    ((0.80, 0.26, 0.65), 0.27, True),        # within 5% of staged
+    ((0.15, 0.70, 0.65), 0.25, False)])      # under P1 piecewise too
+def test_impossible_branch_rung_faster_than_the_mix(branch, staged, ok):
+    """A branch rung is held to the faster of P5's modes, here staged or
+    mix (it does their work and more), within twice the larger noise or
+    LADDER_FLOOR, and to P1 piecewise; it may be slower than the top
+    rung."""
+    res = _readings()
+    res["ladder"] = {"65536": _branch_readings(branch, staged)}
+    bad = tool.impossible(res)
+    assert (bad == []) == ok
+    assert ok or any("faster than the faster of P5's modes" in b
+                     for b in bad)
+    if branch[0] == 0.15:
+        assert any("storewarps" in b and "piecewise" in b for b in bad)
+
+
+def test_impossible_reads_the_short_ladder():
+    """The (2^16, 256) ladder's readings are held to the same rules, under
+    their own label."""
+    res = _readings()
+    res["ladder"] = {"65536": _branch_readings((0.9, 0.85, 0.8))}
+    short = _branch_readings((0.9, 0.85, 0.8))
+    short["rungs"]["storewarps"]["ms"] = 0.05
+    res["ladder_short"] = {"65536x256": short}
+    bad = tool.impossible(res)
+    assert bad and all(b.startswith("ladder 65536x256 storewarps")
+                       for b in bad)
+
+
 def _ladder_sass(drop=None):
     """cuobjdump -sass text of the P5 / P6 kernels, each rung with its
-    marks; ``drop`` (a rung's name) gives that rung the rung before it's."""
+    marks, a branch rung the top rung's and its own; ``drop`` (a rung's
+    name) gives that rung the rung before it's (the rungs after it keep
+    theirs)."""
     counts = {"mix": {}, "staged": {"UBLKCP.G.S": 4},
               "barriers": {"BAR.SYNC.DEFER_BLOCKING": 64},
               "scan": {"SHFL.UP": 44}, "div_pos": {"MUFU.RCP64H": 15},
               "log_pos": {"MUFU.RCP64H": 28},
               "handoff": {"ATOMG.E.ADD.STRONG.GPU": 1,
-                          "LDG.E.64.STRONG.GPU": 2}}
+                          "LDG.E.64.STRONG.GPU": 2},
+              "storewarps": {"BAR.ARV": 2}}
     lines, acc, addr = ["\tcode for sm_90a"], Counter(
         {"BAR.SYNC.DEFER_BLOCKING": 3, "MUFU.RCP64H": 3}), 0
     for name, steps, staged in tool.ladder_rungs():
         ops = Counter(acc)
-        if name != drop:
-            ops.update(counts.get(name, {}))
-        if not staged:
+        parts = name.split("_") if tool.in_branch(name) else [name]
+        for part in parts:                      # a branch rung: its levers'
+            ops.update(counts.get(part, {}))
+        if not staged and not tool.in_branch(name):
             acc = Counter(ops)
+        if name == drop:
+            for part in parts:
+                ops.subtract(counts.get(part, {}))
         lines.append(f"\t\tFunction : _ZN45_GLOBAL__N__d5eaa224_12_vpu_probe_"
                      f"cu_f64d4cb410mix_kernelILi{vp.steps_bits(steps)}ELb"
                      f"{int(staged)}EEEvPKfPfS3_PdS4_S4_Piiiiiiii")
@@ -751,12 +943,19 @@ def test_ladder_work_counts_each_rungs_marks():
     assert rows["barriers BAR.SYNC"] == {"count": 67, "before": 3, "need": 2}
     assert rows["log_pos MUFU.RCP64H"]["before"] == 18
     assert rows["staged UBLKCP"] == {"count": 4, "before": 0, "need": 2}
+    assert rows["storewarps BAR.ARV"] == {"count": 2, "before": 0, "need": 2}
+    assert rows["storewarps_early BAR.ARV"] == rows["storewarps BAR.ARV"]
+    assert rows["early SHFL.UP (top)"] == {"count": 44, "before": 0,
+                                           "need": 20}
     assert set(rows) == {f"{r} {mark}" for r, marks in
-                         tool.LADDER_MARKS.items() for mark, _ in marks}
+                         tool.LADDER_MARKS.items() for mark, _ in marks} | {
+        f"{r} {mark} (top)" for r in tool.BRANCH
+        for mark in tool.top_marks()} | {"storewarps_early BAR.ARV"}
 
 
 @pytest.mark.parametrize("rung", ["barriers", "scan", "div_pos", "log_pos",
-                                  "handoff", "staged"])
+                                  "handoff", "staged", "storewarps",
+                                  "storewarps_early"])
 def test_ladder_work_reports_a_missing_step(rung):
     _, short = tool.ladder_work(_ladder_sass(drop=rung))
     assert short and all(s.startswith(f"sass {rung}:") for s in short)
@@ -784,6 +983,35 @@ def test_mix_bisect_refuse_the_cpu_and_other_rungs():
         vp.bisect_cuda(4, 1024, ("scan",), device="cuda:0")
     with pytest.raises(ValueError, match="mode"):
         vp.mix_cuda(4, 1024, "piecewise", device="cuda:0")
+
+
+def test_tool_ladder_runs_the_branch_on_the_cpu():
+    """The tool's short ladders (FIT_RUNGS, SIZES' ladder_short) on the
+    CPU: each branch rung's output equal to the top rung's, its increment
+    over the top rung, P5's modes without one; the fit from the three
+    m."""
+    res = {}
+    cpu = torch.device("cpu")
+    long_ = tool.ladder(cpu, "cpu", ((1024, 4),), res, reps=1,
+                        names=tool.FIT_RUNGS)
+    short = tool.ladder_short(cpu, "cpu", tool.SIZES["cpu"]["ladder_short"],
+                              res, reps=1)
+    assert list(short) == ["1024x2", "1024x3"]
+    sh = short["1024x2"]
+    assert list(sh["rungs"]) == [x for x, _, _ in tool.ladder_rungs()
+                                 if x in tool.FIT_RUNGS]
+    assert all(sh["rungs"][x]["equal_top"] for x in tool.BRANCH)
+    assert sh["rungs"]["log_pos"]["inc_us_col"] is None    # no div_pos here
+    assert sh["rungs"]["handoff"]["inc_us_col"] is not None
+    assert sh["rungs"]["early"]["inc_us_col"] == pytest.approx(
+        sh["rungs"]["early"]["us_col"] - sh["rungs"]["handoff"]["us_col"])
+    assert sh["rungs"]["staged"].get("inc_us_col") is None
+    assert "mismatch" not in res
+    fit = tool.fits(long_, short)["1024"]
+    assert set(fit) == {"K3"} | set(tool.FIT_RUNGS)
+    assert all(f["resid_us"] >= 0 for f in fit.values())
+    res.update(ladder=long_, ladder_short=short)
+    assert tool.fit_ms(res, "1024") == "4, 2, 3"
 
 
 # -- the wrappers, the builder, the tool -----------------------------------------
@@ -1106,3 +1334,37 @@ def test_mix_and_bisect_kernels_match_ref(cuda_device):
             got = vp.bisect_cuda(m, n, steps, device=cuda_device)
             want = vp.bisect_ref(m, n, steps, sms=sms, device=cuda_device)
             assert vp.mix_errors(got, want, steps)[1]
+
+
+@pytest.mark.cuda
+def test_branch_kernels_equal_the_top_rung(cuda_device):
+    """Each branch rung's outputs bitwise the top rung's, at a short last
+    chunk and at (2^16, 64), with cols_plan's blocks and with a quarter of
+    them (each block several chunks in turn); the branch refused at 2^21
+    rows, where its columns of V do not fit."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, m in ((40000, 9), (1 << 16, 64)):
+        top = vp.bisect_cuda(m, n, vp.BISECT_STEPS, device=cuda_device)
+        blocks = max(1, vp.cols_plan(n, m, sms).blocks // 4)
+        for steps in vp.branch():
+            for b in (None, blocks):
+                got = vp.bisect_cuda(m, n, steps, device=cuda_device,
+                                     blocks=b)
+                assert all(torch.equal(g, t) for g, t in zip(got, top))
+    with pytest.raises(ValueError, match="shared memory"):
+        vp.bisect_cuda(4, 1 << 21, vp.branch()[0], device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_staged_kernel_matches_ref_over_waves(cuda_device):
+    """P5 staged, its two buffers, bitwise equal to mix_ref and to P5 mix
+    at a short last chunk, at (2^16, 64), and over two waves of chunks at
+    (2^21, 4), where a block's buffers carry on from chunk to chunk."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, m in ((40000, 9), (1 << 16, 64), (1 << 21, 4)):
+        want = vp.mix_ref(m, n, sms=sms, device=cuda_device)
+        got = vp.mix_cuda(m, n, "staged", device=cuda_device)
+        assert vp.mix_errors(got, want) == (0.0, True)
+        mix = vp.mix_cuda(m, n, "mix", device=cuda_device)
+        assert all(torch.equal(g, o) for g, o in zip(got, mix))
+    assert vp.cols_plan(1 << 21, 4, sms).chunks > sms

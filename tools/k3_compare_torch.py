@@ -22,10 +22,14 @@ with CUDA events (median of 5) in turns: every build, then again in the
 reverse order.  --crossover also times K2 and K3 at n = r m for r = 2..8
 (median of 7).  --ladder also runs P6's ladder at (2^16, 1024)
 (tools/vpu_probe_torch.py's ladder: P5's mix, then each step toward K3,
-every output held to its plain version) and prints each rung's us a
-column, a call's device time without its host work, beside every K3
-build's, a call's time with its host work.  Every line carries the
-card's name and power limit.
+then the branch of levers from the top rung, every output held to its
+plain version) and prints each rung's us a column, a call's device time
+without its host work, beside every K3 build's, a call's time with its
+host work; each branch rung's time over the top rung's; and P5, the top
+rung, the branch and K3 again at (2^16, 256) and (2^16, 512), with each
+one's fill and period (time = fill + m x period) from the three m and the
+line's residual.  Every line carries
+the card's name and power limit.
 """
 import argparse
 import ctypes
@@ -46,6 +50,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import vpu_probe_torch as vpt  # noqa: E402
 
 SHAPES = ((1 << 16, 1024), (1 << 20, 1024))
+SHORT_M = (256, 512)                    # --ladder's other m, for the fits
 CROSS_M = (64, 100, 200, 256, 512, 1024, 2048, 4096)
 
 
@@ -154,11 +159,22 @@ def main(argv=None):
         n, m = SHAPES[0]
         res = {}
         sh = vpt.ladder(dev, card, (SHAPES[0],), res)[str(n)]
+        short = vpt.ladder_short(dev, card, [(n, x) for x in SHORT_M], res)
         if res.get("mismatch"):
             raise SystemExit(f"k3_compare_torch: {res['mismatch']}")
         print(f"({n}, {m}) P6's ladder, us a column (+ over the rung "
               f"before): {vpt.ladder_summary(sh)} [{card}]")
-        top = sh["rungs"][vpt.ladder_rungs()[-2][0]]["ms"]
+        top = sh["rungs"][vpt.TOP]["ms"]
+        print(f"({n}, {m}) the branch over the top rung, us a column: "
+              + ", ".join(f"{x} {1e3 * (sh['rungs'][x]['ms'] - top) / m:+.4f}"
+                          for x in vpt.BRANCH) + f" [{card}]")
+        for x in SHORT_M:
+            print(f"({n}, {x}) us a column: "
+                  f"{vpt.ladder_summary(short[f'{n}x{x}'])} [{card}]")
+        print(f"({n}, {m}, {', '.join(map(str, SHORT_M))}) fill + m x "
+              f"period: "
+              f"{vpt.fit_summary(vpt.fits({str(n): sh}, short)[str(n)])} "
+              f"[{card}]")
         print(f"({n}, {m}) the ladder's K3: {sh['k3_ms']:.4f} ms of device "
               f"time a call, host gap {sh['k3_host_ms']:.4f} ms; the top "
               f"rung's {top:.4f} ms is {100 * sh['top_share']:.2f}% of it "

@@ -17,12 +17,21 @@ JAX tool's shapes translated to the card (ops/vpu_probe_cuda.py):
            steps a column: the chains alone, the stores alone, both
   ladder   P5 (mix, staged) and every rung of P6's ladder (ops/
            vpu_probe_cuda.py: ladder(), from K3's memory mix step by step
-           to K3's structure) at both of K3's shapes, beside K3 itself
-           (a = 0.5, f32) in the same process: each rung's time, us a
-           column and increment over the rung before, timed twice (every
-           rung, then again in the reverse order; the time is the mean of
-           the two medians, the noise their difference), and the share of
-           K3's time the top rung reaches
+           to K3's structure) and of its branch from the top rung
+           (branch(): the top rung with storewarps, with early and with
+           both, levers that move work between warps; storewarps left out
+           at 2^20 rows, where it does not fit) at both of K3's shapes,
+           beside K3
+           itself (a = 0.5, f32) in the same process: each rung's time, us
+           a column and increment over the rung before (a branch rung's
+           over the top rung), timed twice (every rung, then again in the
+           reverse order; the time is the mean of the two medians, the
+           noise their difference), and the share of K3's time the top
+           rung reaches; then P5, the top rung, the branch and K3 at
+           (2^16, 256) and (2^16, 512) too, and from the three m each
+           one's fill and period (a column pipeline takes fill + m x
+           period: the fill is chunks x the hop from chunk to chunk) and
+           the line's largest residual
 
 and from them the floors of K1 at its benchmark shape (64 x 16384 x 1024),
 K2 at (16384, 1024) and K3 at (2^20, 1024) and (2^16, 1024):
@@ -58,15 +67,18 @@ run (impossible()):
   * an overlap fraction outside [-0.05, 1.05];
   * a ladder rung faster than the rung before it by more than the noise
     (twice the larger of the two rungs' noise, at least LADDER_FLOOR of
-    the time), or faster than P1 piecewise at the same shape (by more
-    than LADDER_FLOOR): the compiler removed work;
+    the time), a branch rung faster than the faster of P5's modes by as
+    much, or a P6 rung faster than P1 piecewise at the same shape
+    (by more than LADDER_FLOOR): the compiler removed work;
   * a P6 rung whose compiled code lacks its step's mark (LADDER_MARKS,
-    counted against the rung before it), or P5 staged without its bulk
-    copies.
+    counted against the rung before it), a branch rung without the marks
+    the ladder asks of the top rung (top_marks) or storewarps without its
+    arrivals, or P5 staged without its bulk copies.
 
 P5 / P6 outputs are held to their plain versions (bisect_ref) bitwise,
 or where div_pos / log_pos are in play (vp.mix_errors) the f64 sinks
-within 1e-12 relative and the f32 tables within one f32 ulp.
+within 1e-12 relative and the f32 tables within one f32 ulp; a branch
+rung's to the top rung's bitwise.
 
 Readable lines go to stderr, one JSON object to stdout.
 
@@ -141,10 +153,12 @@ def ladder_flops(steps, k: int) -> float:
 SIZES = {
     "cuda": dict(write=K3_SHAPES, alu_r=2048, smem_steps=1024,
                  overlap_iters=(64, 128, 256), overlap_shape=K3_SHAPES[0],
-                 ladder=K3_SHAPES),
+                 ladder=K3_SHAPES,
+                 ladder_short=((1 << 16, 256), (1 << 16, 512))),
     "cpu": dict(write=((1024, 4), (512, 4)), alu_r=2, smem_steps=1,
                 overlap_iters=(8, 16), overlap_shape=(1024, 4),
-                ladder=((1024, 4), (2048, 3))),
+                ladder=((1024, 4), (2048, 3)),
+                ladder_short=((1024, 2), (1024, 3))),
 }
 CPU_THREADS = 64                        # P2's threads on the CPU
 CPU_SMEM_CHUNK = 1024                   # P3's chunk on the CPU
@@ -378,11 +392,43 @@ def overlap(device, card, shape, iters_list, res, reps=5):
     return rows
 
 
+TOP = vp.BISECT_STEPS[-1]               # the ladder's top rung, by its step
+# the branch's rungs, by their levers
+BRANCH = tuple("_".join(st[len(vp.BISECT_STEPS):]) for st in vp.branch())
+
+
 def ladder_rungs():
     """[(name, steps, staged)]: P5's mix, P6's rungs in order (each named
-    by the step it adds), and P5 staged beside the ladder."""
-    return ([("mix", (), False)] + [(st[-1], st, False) for st in vp.ladder()]
-            + [("staged", (), True)])
+    by the step it adds), P5 staged beside the ladder, and the branch from
+    the top rung (BRANCH: each named by its levers)."""
+    return ([("mix", (), False)]
+            + [(st[-1], st, False) for st in vp.ladder()]
+            + [("staged", (), True)]
+            + [(name, st, False) for name, st in zip(BRANCH, vp.branch())])
+
+
+def rung_before():
+    """{P6 rung: the rung its increment and its marks count against}: the
+    ladder's rung before it (mix for the first), the top rung for a branch
+    rung."""
+    names = [st[-1] for st in vp.ladder()]
+    return {**dict(zip(names, ["mix"] + names)),
+            **{name: TOP for name in BRANCH}}
+
+
+def in_branch(name: str) -> bool:
+    return name in BRANCH
+
+
+def rung_fits(steps, staged, n, m, sms, piece=vp.PIECE) -> bool:
+    """Whether the kernel takes (steps, staged) at (n, m) (vp.mix_plan):
+    storewarps' two columns of V do not fit beside K3's state at 2^20
+    rows."""
+    try:
+        vp.mix_plan("ladder", steps, staged, m, n, piece, sms)
+    except ValueError:
+        return False
+    return True
 
 
 def ladder_summary(shape_row) -> str:
@@ -394,22 +440,27 @@ def ladder_summary(shape_row) -> str:
         for name, r in shape_row["rungs"].items())
 
 
-def ladder(device, card, shapes, res, reps=5):
-    """P5 and P6's ladder at each (n, m) of ``shapes`` beside K3 (a = 0.5,
-    f32) and P1 piecewise: per rung ms, a call's device time
+def ladder(device, card, shapes, res, reps=5, names=None):
+    """P5 and P6's ladder and branch at each (n, m) of ``shapes`` beside K3
+    (a = 0.5, f32) and P1 piecewise: per rung ms, a call's device time
     (device_timed; the mean of a forward and a reverse pass, each a median
     of ``reps``), noise_ms (their difference), us a column and its
-    increment over the rung before, host_ms (a call's time between CUDA
-    events less its device time: the wrapper's host work), the plain
-    version's host time and the largest difference from it; top_share,
-    the top rung's device time over K3's.  On the card each output is held
-    to bisect_ref (vp.mix_errors)."""
+    increment over the rung before (rung_before), host_ms (a call's time
+    between CUDA events less its device time: the wrapper's host work),
+    the plain version's host time and the largest difference from it;
+    top_share, the top rung's device time over K3's.  ``names``: the rungs
+    to run (all of ladder_rungs() if None); a rung the kernel does not
+    take at a shape (rung_fits) is left out there.  On the card each
+    output is held to bisect_ref (vp.mix_errors) and each branch rung's
+    to the top rung's bitwise (equal_top)."""
     on_card = device.type == "cuda"
     sms = torch.cuda.get_device_properties(device).multi_processor_count \
         if on_card else 132
-    rungs = ladder_rungs()
+    before = rung_before()
     rows = {}
     for n, m in shapes:
+        rungs = [r for r in ladder_rungs() if (names is None or r[0] in names)
+                 and rung_fits(r[1], r[2], n, m, sms)]
         a32 = torch.full((1,), vp.A_SMEM, device=device)
         k3 = (sc.fill_table_cols_cuda if on_card else sc.fill_table_cols_ref)
         k3_ms, k3_call_ms, got = device_timed(lambda: k3(a32[0], n, m),
@@ -427,7 +478,7 @@ def ladder(device, card, shapes, res, reps=5):
                 lambda: vp.write_floor_cuda(m, n, "piecewise", device=device,
                                             out=bufs[:2]), device, reps)
             del got
-        entry = {}
+        entry, top_out = {}, None
         for name, steps, staged in rungs + rungs[::-1]:
             if on_card:
                 out = tuple(b if i < 2 or (i == 2 and "vcarry" in steps) or (
@@ -440,8 +491,7 @@ def ladder(device, card, shapes, res, reps=5):
                     fn = (lambda: vp.bisect_cuda(m, n, steps, a=a32,
                                                  device=device, out=out))
                 else:
-                    mode = "staged" if staged else "mix"
-                    fn = (lambda: vp.mix_cuda(m, n, mode, device=device,
+                    fn = (lambda: vp.mix_cuda(m, n, name, device=device,
                                               out=out[:2]))
             else:
                 fn = (lambda: vp.bisect_ref(m, n, steps, device=device))
@@ -456,6 +506,17 @@ def ladder(device, card, shapes, res, reps=5):
                 continue
             row = entry[name] = {"steps": list(steps), "staged": staged,
                                  "ms_fwd": ms, "call_ms_fwd": call_ms}
+            if name == TOP and any(in_branch(r[0]) for r in rungs):
+                top_out = tuple(None if g is None else g.clone()
+                                for g in got)
+            elif in_branch(name) and top_out is not None:
+                row["equal_top"] = all(
+                    g is t is None or (g is not None and t is not None
+                                       and torch.equal(g, t))
+                    for g, t in zip(got, top_out))
+                if not row["equal_top"]:
+                    _mismatch(res, f"ladder {name} at ({n}, {m}) differs "
+                                   f"from the top rung {TOP}")
             if on_card:
                 torch.cuda.synchronize(device)
                 t0 = time.perf_counter()
@@ -470,36 +531,108 @@ def ladder(device, card, shapes, res, reps=5):
                                    f"difference {err:.3g}")
                 del want
             del got
-        prev = None
-        for name, _, staged in rungs:
-            row = entry[name]
-            if not staged:
-                row["inc_us_col"] = (row["us_col"] - prev["us_col"]
-                                     if prev else None)
-                prev = row
-        top = entry[rungs[-2][0]]
+        del top_out
+        for name, row in entry.items():
+            if not row["staged"]:
+                row["inc_us_col"] = (row["us_col"]
+                                     - entry[before[name]]["us_col"]
+                                     if before.get(name) in entry else None)
         rows[str(n)] = {"n": n, "m": m, "k3_ms": k3_ms,
                         "k3_us_col": k3_ms * 1e3 / m,
                         "k3_host_ms": k3_call_ms - k3_ms,
-                        "piecewise_ms": pw_ms,
-                        "chunk": plan.chunk, "rungs": entry,
-                        "top_share": top["ms"] / k3_ms}
-        for name, _, staged in rungs:
-            row = entry[name]
+                        "piecewise_ms": pw_ms, "chunk": plan.chunk,
+                        "chunks": plan.chunks, "rungs": entry,
+                        "top_share": (entry[TOP]["ms"] / k3_ms
+                                      if TOP in entry else None)}
+        for name, row in entry.items():
             inc = row.get("inc_us_col")
             _say(f"ladder ({n}, {m}) {name:10s} {row['ms']:.4f} ms "
                  f"(+-{row['noise_ms']:.4f}) = {row['us_col']:.4f} us a "
                  f"column" + ("" if inc is None else f", {inc:+.4f} over "
-                              "the rung before") + f"; host gap "
+                              f"{before[name]}") + f"; host gap "
                  f"{row['host_ms']:.4f} ms [{card}]")
         _say(f"ladder ({n}, {m}): K3 {k3_ms:.4f} ms = "
              f"{k3_ms * 1e3 / m:.4f} us a column (host gap "
              f"{k3_call_ms - k3_ms:.4f} ms), P1 piecewise "
              + ("not timed" if pw_ms is None else f"{pw_ms:.4f} ms")
-             + f"; the top rung reaches "
-             f"{100 * rows[str(n)]['top_share']:.2f}% of K3 [{card}]")
+             + ("" if rows[str(n)]["top_share"] is None else
+                f"; the top rung reaches "
+                f"{100 * rows[str(n)]['top_share']:.2f}% of K3")
+             + f" [{card}]")
         del bufs
     return rows
+
+
+# the rungs timed again at shorter m of K3_SHAPES[1]'s n (SIZES'
+# ladder_short): the three m give each one's fill and period (fill_period);
+# log_pos, the rung before the hand-off, splits the hand-off's increment
+# into the two
+FIT_RUNGS = ("mix", "log_pos", TOP) + BRANCH + ("staged",)
+
+
+def ladder_short(device, card, shapes, res, reps=5):
+    """FIT_RUNGS' ladder (ladder(names=FIT_RUNGS)) at each (n, m) of
+    ``shapes``, keyed "<n>x<m>"."""
+    return {f"{n}x{m}": ladder(device, card, ((n, m),), res, reps,
+                               names=FIT_RUNGS)[str(n)]
+            for n, m in shapes}
+
+
+def fill_period(points):
+    """The least-squares line through [(m, ms)]: a column pipeline takes
+    fill + m x period, the fill (chunks x a hop from chunk to chunk, paid
+    once a call) and the period (a column's chain): (fill ms, period us,
+    the largest distance of a point from the line in us, 0 through two
+    points)."""
+    ms_ = np.array([m for m, _ in points], dtype=np.float64)
+    t = np.array([t for _, t in points], dtype=np.float64)
+    if len(points) < 2 or np.ptp(ms_) == 0:
+        raise ValueError(f"fill_period: two or more m needed, not {points}")
+    slope, icept = np.polyfit(ms_, t, 1)
+    resid = np.abs(t - (icept + slope * ms_)).max()
+    return float(icept), float(slope * 1e3), float(resid * 1e3)
+
+
+def fits(long_rows, short_rows):
+    """Each rung's, and K3's, fill and period from its times at one n in
+    the ladders (ladder's rows and ladder_short's), over the rungs timed
+    at every m of that n: {n: {name: {"fill_ms", "period_us", "resid_us",
+    "hop_us"}}}, resid_us fill_period's residual, hop_us the fill over
+    the chunks."""
+    by_n = {}
+    for sh in list(long_rows.values()) + list(short_rows.values()):
+        by_n.setdefault(str(sh["n"]), []).append(sh)
+    out = {}
+    for key, shs in by_n.items():
+        if len({sh["m"] for sh in shs}) < 2:
+            continue
+        names = [x for x in shs[-1]["rungs"]
+                 if all(x in sh["rungs"] for sh in shs)]
+        times = {"K3": [(sh["m"], sh["k3_ms"]) for sh in shs]}
+        times.update({x: [(sh["m"], sh["rungs"][x]["ms"]) for sh in shs]
+                      for x in names})
+        out[key] = {}
+        for name, pts in times.items():
+            fill, period, resid = fill_period(pts)
+            out[key][name] = {"fill_ms": fill, "period_us": period,
+                              "resid_us": resid,
+                              "hop_us": fill * 1e3 / shs[0]["chunks"]}
+    return out
+
+
+def fit_ms(res, key) -> str:
+    """The m the fits at n = ``key`` were taken from, as text."""
+    return ", ".join(str(sh["m"]) for part in ("ladder", "ladder_short")
+                     for sh in res[part].values() if str(sh["n"]) == key)
+
+
+def fit_summary(fit_rows) -> str:
+    """The fits of one n as text: name fill ms + period us a column (the
+    hop, the residual)."""
+    return ", ".join(f"{name} {f['fill_ms']:.4f} ms + {f['period_us']:.4f} "
+                     f"us a column (hop {f['hop_us']:.4f} us, residual "
+                     f"{f['resid_us']:.4f} us)"
+                     for name, f in fit_rows.items())
 
 
 # P2's and P4's kernels in the compiled library, by their mangled names,
@@ -573,18 +706,22 @@ def compiled_work(text: str):
     return rows, short
 
 
-# P5 / P6's kernels by their template arguments (the steps' bits, staged),
-# and the mark of each step that its values cannot show, counted in the
-# rung's kernel against the rung before it (P5 staged: against P5 mix):
-# the named barriers, the scan's shuffles (a double is two), the divide's
-# hardware reciprocal (log_pos's reduction divides too), the hand-off's
-# ticket and its relaxed poll, staged's bulk copies
+# P5 / P6's kernels by their template arguments (the steps' bits,
+# staged), and the mark of each step that its values cannot show, counted
+# in the rung's kernel against the rung before it (P5 staged: against P5
+# mix; a branch rung: against the top rung): the named barriers, the
+# scan's shuffles (a double is two), the divide's hardware reciprocal
+# (log_pos's reduction divides too), the hand-off's ticket and its relaxed
+# poll, storewarps' arrivals (at full and at empty), staged's bulk copies.
+# A branch rung also holds every mark the ladder asks of the top rung:
+# each at least its needs summed over the nine steps above P5 mix's count.
 _MIX = re.compile(r"mix_kernelILi(\d+)ELb([01])EE")
 LADDER_MARKS = {"barriers": (("BAR.SYNC", 2),),
                 "scan": (("SHFL.UP", 20),),
                 "div_pos": (("MUFU.RCP64H", 1),),
                 "log_pos": (("MUFU.RCP64H", 1),),
                 "handoff": (("ATOMG", 1), ("LDG.E.64.STRONG.GPU", 1)),
+                "storewarps": (("BAR.ARV", 2),),
                 "staged": (("UBLKCP", 2),)}
 
 
@@ -592,33 +729,53 @@ def _count_prefix(ops: Counter, mark: str) -> int:
     return sum(c for op, c in ops.items() if op.startswith(mark))
 
 
+def top_marks() -> dict:
+    """{mark: need}: the marks of the ladder's nine steps, their needs
+    summed (what the top rung holds over P5 mix)."""
+    need = Counter()
+    for step in vp.BISECT_STEPS:
+        for mark, n in LADDER_MARKS.get(step, ()):
+            need[mark] += n
+    return dict(need)
+
+
 def ladder_work(text: str):
     """Each ladder rung's marks (LADDER_MARKS) in the cuobjdump -sass
-    ``text``, against the rung before it: ({"rung mark": {"count",
-    "before", "need"}}, [shortfalls]); a rung's kernel missing from the
-    library is a shortfall."""
+    ``text``, against the rung before it (a branch rung's against the top
+    rung), and each branch rung's top_marks() against P5 mix: ({"rung
+    mark": {"count", "before", "need"}}, [shortfalls]); a rung's kernel
+    missing from the library is a shortfall."""
     kern = {}
     for name, ops in sass_opcodes(text).items():
         hit = _MIX.search(name)
         if hit:
             kern[(int(hit.group(1)), hit.group(2) == "1")] = ops
     rows, short = {}, []
+    mix = kern.get((0, False))
+    top = kern.get((vp.steps_bits(vp.BISECT_STEPS), False))
     prev = None
+
+    def hold(key, ops, mark, base, need):
+        count = _count_prefix(ops, mark)
+        before = _count_prefix(base, mark) if base is not None else 0
+        rows[key] = {"count": count, "before": before, "need": need}
+        if count - before < need:
+            short.append(f"sass {key.split()[0]}: {count} {mark} against "
+                         f"{before} in the rung before, < +{need}")
+
     for name, steps, staged in ladder_rungs():
         key = (vp.steps_bits(steps), staged)
         if key not in kern:
             short.append(f"sass {name}: not in the library")
             continue
-        base = kern.get((0, False)) if staged else prev
-        for mark, need in LADDER_MARKS.get(name, ()):
-            count = _count_prefix(kern[key], mark)
-            before = _count_prefix(base, mark) if base is not None else 0
-            rows[f"{name} {mark}"] = {"count": count, "before": before,
-                                      "need": need}
-            if count - before < need:
-                short.append(f"sass {name}: {count} {mark} against "
-                             f"{before} in the rung before, < +{need}")
-        if not staged:
+        base = mix if staged else top if in_branch(name) else prev
+        for part in name.split("_") if in_branch(name) else (name,):
+            for mark, need in LADDER_MARKS.get(part, ()):
+                hold(f"{name} {mark}", kern[key], mark, base, need)
+        if in_branch(name):
+            for mark, need in top_marks().items():
+                hold(f"{name} {mark} (top)", kern[key], mark, mix, need)
+        elif not staged:
             prev = kern[key]
     return rows, short
 
@@ -676,6 +833,52 @@ def floors(res):
             "kernels": rows}
 
 
+def _ladders(res):
+    """(label, shape row) of every ladder the readings hold."""
+    for part in ("ladder", "ladder_short"):
+        yield from (res.get(part) or {}).items()
+
+
+def _ladder_impossible(key, sh):
+    """One shape's ladder readings that cannot stand: a byte rate over the
+    device memory's; a P6 rung faster than P1 piecewise; a ladder rung
+    faster than the rung before it by more than the noise (twice the
+    larger of the two rungs' noise, at least LADDER_FLOOR of its time); a
+    branch rung faster than the faster of P5's modes by as much (it does
+    their work and more)."""
+    bad = []
+    nbytes = 2 * 4 * sh["n"] * sh["m"]
+    rungs = sh["rungs"]
+    before = rung_before()
+    floor = min((rungs[x] for x in vp.MIX_MODES if x in rungs),
+                key=lambda r: r["ms"], default=None)
+    for name, _, staged in ladder_rungs():
+        row = rungs.get(name)
+        if row is None:
+            continue
+        if nbytes / (row["ms"] * 1e-3) > PLAUSIBLE * HBM_BPS:
+            bad.append(f"ladder {key} {name}: "
+                       f"{nbytes / (row['ms'] * 1e6):.1f} GB/s")
+        if staged:
+            continue
+        pw = sh.get("piecewise_ms")
+        if pw and row["ms"] < (1 - LADDER_FLOOR) * pw:
+            bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, "
+                       f"faster than P1 piecewise's {pw:.4f}")
+        ref = (floor if in_branch(name) else rungs.get(before.get(name)))
+        if ref is None:
+            continue
+        slack = max(2 * max(row["noise_ms"], ref["noise_ms"]),
+                    LADDER_FLOOR * ref["ms"])
+        if ref["ms"] - row["ms"] > slack:
+            what = ("the faster of P5's modes" if in_branch(name)
+                    else "the rung before")
+            bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, faster "
+                       f"than {what} ({ref['ms']:.4f}) by more than "
+                       f"{slack:.4f}")
+    return bad
+
+
 def impossible(res):
     """The readings that cannot stand: a byte rate over the device
     memory's or an op rate over the FMA rate of its type (PLAUSIBLE x the
@@ -701,29 +904,8 @@ def impossible(res):
         if not lo <= v["fraction"] <= hi:
             bad.append(f"overlap {k}: fraction {v['fraction']:.4f} outside "
                        f"[{lo}, {hi}]")
-    for key, sh in (res.get("ladder") or {}).items():
-        nbytes = 2 * 4 * sh["n"] * sh["m"]
-        prev = None
-        for name, _, staged in ladder_rungs():
-            row = sh["rungs"][name]
-            if nbytes / (row["ms"] * 1e-3) > PLAUSIBLE * HBM_BPS:
-                bad.append(f"ladder {key} {name}: "
-                           f"{nbytes / (row['ms'] * 1e6):.1f} GB/s")
-            if staged:
-                continue
-            pw = sh.get("piecewise_ms")
-            if pw and row["ms"] < (1 - LADDER_FLOOR) * pw:
-                bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, "
-                           f"faster than P1 piecewise's {pw:.4f}")
-            if prev is not None:
-                slack = max(2 * max(row["noise_ms"], prev["noise_ms"]),
-                            LADDER_FLOOR * prev["ms"])
-                if prev["ms"] - row["ms"] > slack:
-                    bad.append(f"ladder {key} {name}: {row['ms']:.4f} ms, "
-                               f"faster than the rung before "
-                               f"({prev['ms']:.4f}) by more than "
-                               f"{slack:.4f}")
-            prev = row
+    for key, sh in _ladders(res):
+        bad += _ladder_impossible(key, sh)
     bad += res.get("mismatch", [])
     if res.get("sass"):
         bad += res["sass"]["short"]
@@ -758,6 +940,12 @@ def run(device, card, sizes):
     res["overlap"] = overlap(device, card, sizes["overlap_shape"],
                              sizes["overlap_iters"], res)
     res["ladder"] = ladder(device, card, sizes["ladder"], res)
+    res["ladder_short"] = ladder_short(device, card, sizes["ladder_short"],
+                                       res)
+    res["fit"] = fits(res["ladder"], res["ladder_short"])
+    for key, f in res["fit"].items():
+        _say(f"ladder fill + period at n = {key} (m = "
+             f"{fit_ms(res, key)}): {fit_summary(f)} [{card}]")
     res["floors"] = floors(res)
     for kern, f in res["floors"]["kernels"].items():
         _say(f"{kern}: write floor {f['write_floor_ms']:.4f} ms "
