@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import local_device
-from ..utils import yaps
+from ..utils import metrics, yaps
 
 __all__ = ["StirlingTable", "make", "s1_anchored", "remake", "ensure",
            "fill_route", "s1_route", "fill_rows", "s1_host", "s1_ingraph",
@@ -113,10 +113,11 @@ def s1_anchored(a: float, n_max: int, *, device):
     0."""
     hi, lo = _s1_anchors(a, n_max)
     device = torch.device(device)
-    return _s1_device_fill(torch.as_tensor(hi, device=device),
-                           torch.as_tensor(lo, device=device),
-                           torch.tensor(a, dtype=torch.float32,
-                                        device=device), n_max)
+    with metrics.span("make.s1_upload"):
+        hi = torch.as_tensor(hi, device=device)
+        lo = torch.as_tensor(lo, device=device)
+        a_t = torch.tensor(a, dtype=torch.float32, device=device)
+    return _s1_device_fill(hi, lo, a_t, n_max)
 
 
 def _v_first_row(m_max: int, dtype, device, batch=()) -> torch.Tensor:
@@ -514,11 +515,13 @@ def _s1_pair(a: float, n: int, dtype, device):
     (hi, lo) f32 split otherwise."""
     s1 = s1_host(a, n)
     if dtype == torch.float64:
-        hi = torch.as_tensor(s1, device=device)
+        with metrics.span("make.s1_upload"):
+            hi = torch.as_tensor(s1, device=device)
         return hi, torch.zeros_like(hi)
     hi, lo = _split_hi_lo(s1)
-    return torch.as_tensor(hi, device=device), torch.as_tensor(lo,
-                                                               device=device)
+    with metrics.span("make.s1_upload"):
+        return (torch.as_tensor(hi, device=device),
+                torch.as_tensor(lo, device=device))
 
 
 def make(init_n: int, init_m: int, max_n: int, max_m: int, a: float,
@@ -541,29 +544,32 @@ def make(init_n: int, init_m: int, max_n: int, max_m: int, a: float,
                          "build_s/build_v (stable.c:131, 105-108)")
     from scipy.special import gammaln
 
-    a = float(a)
-    device = torch.device(device)
-    route = fill_route(device, init_n, init_m, build_v)
-    a_t = torch.tensor(a, dtype=dtype, device=device)
-    if route == "fill_table_cols":
-        vtab, srel = stirling_cuda.fill_table_cols(a_t, init_n, init_m,
-                                                   with_srel=build_s)
-    else:
-        vtab, srel = stirling_cuda.fill_table(a_t, init_n, init_m,
-                                              with_srel=build_s)
-    if s1_route(device, dtype, init_n) == "anchored":
-        s1_hi, s1_lo = s1_anchored(a, init_n, device=device)
-    else:
-        s1_hi, s1_lo = _s1_pair(a, init_n, dtype, device)
-    return StirlingTable(
-        a=a_t, lga1=torch.tensor(float(gammaln(1.0 - a)), dtype=dtype,
-                                 device=device),
-        s1_hi=s1_hi, s1_lo=s1_lo,
-        vtab=vtab if build_v else None,
-        srel=srel if build_s else None,
-        n_max=init_n, m_max=init_m, max_n=max_n, max_m=max_m,
-        use_asympt=use_asympt, cols=route == "fill_table_cols", tag=tag,
-        a_pos=a > 0.0)
+    with metrics.span("make"):
+        with metrics.span("make.launch"):
+            a = float(a)
+            device = torch.device(device)
+            route = fill_route(device, init_n, init_m, build_v)
+            a_t = torch.tensor(a, dtype=dtype, device=device)
+            if route == "fill_table_cols":
+                vtab, srel = stirling_cuda.fill_table_cols(
+                    a_t, init_n, init_m, with_srel=build_s)
+            else:
+                vtab, srel = stirling_cuda.fill_table(a_t, init_n, init_m,
+                                                      with_srel=build_s)
+        with metrics.span("make.s1"):
+            if s1_route(device, dtype, init_n) == "anchored":
+                s1_hi, s1_lo = s1_anchored(a, init_n, device=device)
+            else:
+                s1_hi, s1_lo = _s1_pair(a, init_n, dtype, device)
+        return StirlingTable(
+            a=a_t, lga1=torch.tensor(float(gammaln(1.0 - a)), dtype=dtype,
+                                     device=device),
+            s1_hi=s1_hi, s1_lo=s1_lo,
+            vtab=vtab if build_v else None,
+            srel=srel if build_s else None,
+            n_max=init_n, m_max=init_m, max_n=max_n, max_m=max_m,
+            use_asympt=use_asympt, cols=route == "fill_table_cols", tag=tag,
+            a_pos=a > 0.0)
 
 
 def remake(table: StirlingTable, a: float) -> StirlingTable:

@@ -23,6 +23,7 @@ import torch
 from ..core import agrid
 from ..parallel import mesh
 from ..samplers import hyper
+from ..utils import metrics
 from . import pyp
 
 __all__ = ["GibbsConfig", "run_gibbs", "run_gibbs_timed"]
@@ -134,24 +135,27 @@ def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
     b_sum = torch.zeros_like(state["b"])
     a_tr, b_tr = [], []
     for it in range(cfg.iters):
-        t, T, hist = _sweep(gen, data, grid, state, cfg, plan)
-        a, b = state["a"], state["b"]
-        if cfg.bcycle > 0 and it % cfg.bcycle == 0:
-            b = hyper.sample_b(gen, b, plan.N_b, T[:, : cfg.b_groups].to(dt),
-                               a, cfg.shape, cfg.scale, kernel=cfg.kernel)[0]
-        if cfg.acycle > 0 and it % cfg.acycle == 0:
-            a = hyper.sample_a(gen, a, grid, plan.ns_flat, t.reshape(C, -1),
-                               T.to(dt), b[:, None].expand(T.shape),
-                               kernel=cfg.kernel)[0]
-        state = dict(t=t, T=T, hist=hist, a=a, b=b)
-        if cfg.collect_traces:
-            a_tr.append(a)
-            b_tr.append(b)
-        if it >= burnin:
-            t_sum += t
-            T_sum += T
-            a_sum += a
-            b_sum += b
+        with metrics.span("driver.iter"):
+            t, T, hist = _sweep(gen, data, grid, state, cfg, plan)
+            a, b = state["a"], state["b"]
+            if cfg.bcycle > 0 and it % cfg.bcycle == 0:
+                b = hyper.sample_b(gen, b, plan.N_b,
+                                   T[:, : cfg.b_groups].to(dt), a, cfg.shape,
+                                   cfg.scale, kernel=cfg.kernel)[0]
+            if cfg.acycle > 0 and it % cfg.acycle == 0:
+                a = hyper.sample_a(gen, a, grid, plan.ns_flat,
+                                   t.reshape(C, -1), T.to(dt),
+                                   b[:, None].expand(T.shape),
+                                   kernel=cfg.kernel)[0]
+            state = dict(t=t, T=T, hist=hist, a=a, b=b)
+            if cfg.collect_traces:
+                a_tr.append(a)
+                b_tr.append(b)
+            if it >= burnin:
+                t_sum += t
+                T_sum += T
+                a_sum += a
+                b_sum += b
     cnt = float(max(cfg.iters - burnin, 0))
     tave, Tave, aave, bave = (x / cnt for x in (t_sum, T_sum, a_sum, b_sum))
     out = dict(
@@ -246,26 +250,27 @@ def run_gibbs_timed(gen, data: pyp.PYPData, grid: agrid.AGridTable,
             chunk, max_iters - done)
         out = one_chunk(state, step_iters)
         state = {k: out[k] for k in ("t", "T", "hist", "a", "b")}
-        _sync(dev)
-        done += step_iters
-        el_ms = (time.perf_counter() - start) * 1e3
-        in_burn = (el_ms <= burnin_ms if burnin_ms is not None
-                   else done <= burnin)
-        if not in_burn:
-            if burnin_done is None:
-                burnin_done = done - step_iters
-            # out[*ave] are chunk means: weight by the chunk's length so a
-            # clamped last chunk does not skew the average
-            vals = [out[k] * step_iters for k in keys]
-            sums = vals if sums is None else [s + v for s, v in
-                                              zip(sums, vals)]
-            kept += step_iters
-            if progress is not None:
-                rm = [s / kept for s in sums]
-                progress(done, el_ms, dict(
-                    Tave_mean=float(rm[1].sum(-1).mean()),
-                    aave_mean=float(rm[2].mean()),
-                    bave_mean=float(rm[3].mean())))
+        with metrics.span("driver.chunk_end"):
+            _sync(dev)
+            done += step_iters
+            el_ms = (time.perf_counter() - start) * 1e3
+            in_burn = (el_ms <= burnin_ms if burnin_ms is not None
+                       else done <= burnin)
+            if not in_burn:
+                if burnin_done is None:
+                    burnin_done = done - step_iters
+                # out[*ave] are chunk means: weight by the chunk's length
+                # so a clamped last chunk does not skew the average
+                vals = [out[k] * step_iters for k in keys]
+                sums = vals if sums is None else [s + v for s, v in
+                                                  zip(sums, vals)]
+                kept += step_iters
+                if progress is not None:
+                    rm = [s / kept for s in sums]
+                    progress(done, el_ms, dict(
+                        Tave_mean=float(rm[1].sum(-1).mean()),
+                        aave_mean=float(rm[2].mean()),
+                        bave_mean=float(rm[3].mean())))
         if iter_ms is not None and el_ms > iter_ms:
             break
     if sums is None:         # the budget ran out inside burn-in

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core import agrid, rng, stirling
-from ..utils import yaps
+from ..utils import metrics, yaps
 
 _warned_cat_mode = False
 _warned_hsa_pairs = False
@@ -264,42 +264,48 @@ def _ti_run(gen, t, T, a, b, tab: Table, plan: TIPlan,
     dt = a.dtype
     C = t.shape[0]
     S, W = plan.flat.shape
-    t = t.clone()
-    T = T.clone()
-    tf = t.view(C, -1)
-    live = plan.free & ~plan.first if skip_first else plan.free
-    nf = plan.cnt.to(dt)
-    H = plan.H.to(dt)
-    mvec = torch.arange(1, plan.mq + 1, device=t.device)
-    # (C, P * mq) from a grid; one (1, P * mq) block from a single table,
-    # which every chain reads through an expanded view
-    vrows = _vq(tab, plan.pair_n[None, :, None], mvec[None, None, :],
-                a[:, None, None]).to(dt)
-    vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
-    u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
-    a2 = a[:, None]
-    b2 = b[:, None]
-    for s in range(S):
-        flat, j, ni, nif, ls = (plan.flat[s], plan.grp[s], plan.cnt[s],
-                                nf[s], live[s])
-        ti = tf[:, flat]                              # (C, W)
-        Tj = T[:, j]                                  # block-start totals
-        dec = (ti > 1) & ((nif - 1.0) * u[s, 0] < (ti - 1).to(dt)) & ls
-        ti2 = ti - dec.to(ti.dtype)
-        Tj2 = Tj - dec.to(Tj.dtype)
-        # V(n, t+1): m > n reads the block's last column, which is 0 like V
-        idx = plan.vbase[s] + torch.clamp(ti2, max=plan.mq - 1)
-        v = torch.gather(vrows, 1, idx)
-        ti2f = ti2.to(dt)
-        denom = (nif - ti2f + 1.0) if legacy_odds else torch.clamp(
-            nif - ti2f, min=1.0)
-        one = H[s] * (b2 + Tj2.to(dt) * a2) * ti2f / denom * v
-        inc = (u[s, 1] < one / (one + 1.0)) & ls & (ti2 < ni)
-        delta = inc.to(t.dtype) - dec.to(t.dtype)
-        # (j, i) cells are distinct within a step except pad slots, whose
-        # delta is 0; T adds may repeat j (cat mode) and accumulate
-        tf.index_add_(1, flat, delta)
-        T.index_add_(1, j, delta)
+    with metrics.span("ti.sweep"):
+        with metrics.span("ti.prepare"):
+            t = t.clone()
+            T = T.clone()
+            tf = t.view(C, -1)
+            live = plan.free & ~plan.first if skip_first else plan.free
+            nf = plan.cnt.to(dt)
+            H = plan.H.to(dt)
+            mvec = torch.arange(1, plan.mq + 1, device=t.device)
+            # (C, P * mq) from a grid; one (1, P * mq) block from a single
+            # table, which every chain reads through an expanded view
+            vrows = _vq(tab, plan.pair_n[None, :, None],
+                        mvec[None, None, :], a[:, None, None]).to(dt)
+            vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
+            u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
+            a2 = a[:, None]
+            b2 = b[:, None]
+        for s in range(S):
+            with metrics.span("ti.step"):
+                flat, j, ni, nif, ls = (plan.flat[s], plan.grp[s],
+                                        plan.cnt[s], nf[s], live[s])
+                ti = tf[:, flat]                          # (C, W)
+                Tj = T[:, j]                              # block-start totals
+                dec = ((ti > 1) & ((nif - 1.0) * u[s, 0] < (ti - 1).to(dt))
+                       & ls)
+                ti2 = ti - dec.to(ti.dtype)
+                Tj2 = Tj - dec.to(Tj.dtype)
+                # V(n, t+1): m > n reads the block's last column, which is
+                # 0 like V
+                idx = plan.vbase[s] + torch.clamp(ti2, max=plan.mq - 1)
+                v = torch.gather(vrows, 1, idx)
+                ti2f = ti2.to(dt)
+                denom = (nif - ti2f + 1.0) if legacy_odds else torch.clamp(
+                    nif - ti2f, min=1.0)
+                one = H[s] * (b2 + Tj2.to(dt) * a2) * ti2f / denom * v
+                inc = (u[s, 1] < one / (one + 1.0)) & ls & (ti2 < ni)
+                delta = inc.to(t.dtype) - dec.to(t.dtype)
+                # (j, i) cells are distinct within a step except pad slots,
+                # whose delta is 0; T adds may repeat j (cat mode) and
+                # accumulate
+                tf.index_add_(1, flat, delta)
+                T.index_add_(1, j, delta)
     return t, T
 
 

@@ -26,6 +26,7 @@ import torch
 
 from ..core import agrid, rng, special, stirling
 from ..parallel import mesh as pmesh
+from ..utils import metrics
 from . import ars as arsmod
 from . import slice as slicemod
 
@@ -99,27 +100,29 @@ def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
         its try loop, which each rank runs to its own slowest chain.
     Returns (a, ok).
     """
-    dt = a0.dtype
-    T = torch.as_tensor(T, dtype=dt, device=a0.device)
-    b = torch.as_tensor(b, dtype=dt, device=a0.device).expand(T.shape)
-    ns = torch.as_tensor(ns, device=a0.device)
-    ts = torch.as_tensor(ts, device=a0.device)
-    if sparse_chunk is None and ns.shape[-1] >= (1 << 18):
-        sparse_chunk = 1 << 16
-    if sparse_chunk:
-        curve = grid.data_curve_sparse(ns, ts, chunk=sparse_chunk)
-    else:
-        curve = grid.data_curve(ns, ts)
-    if mesh is not None:
-        curve = pmesh.sum_over(curve, mesh, pmesh.DATA_AXIS)
-    if curve.ndim == 1:                    # shared data pairs across chains
-        curve = curve.expand(a0.shape + curve.shape)
+    with metrics.span("hyper.sample_a"):
+        dt = a0.dtype
+        T = torch.as_tensor(T, dtype=dt, device=a0.device)
+        b = torch.as_tensor(b, dtype=dt, device=a0.device).expand(T.shape)
+        ns = torch.as_tensor(ns, device=a0.device)
+        ts = torch.as_tensor(ts, device=a0.device)
+        if sparse_chunk is None and ns.shape[-1] >= (1 << 18):
+            sparse_chunk = 1 << 16
+        with metrics.span("hyper.curve"):
+            if sparse_chunk:
+                curve = grid.data_curve_sparse(ns, ts, chunk=sparse_chunk)
+            else:
+                curve = grid.data_curve(ns, ts)
+        if mesh is not None:
+            curve = pmesh.sum_over(curve, mesh, pmesh.DATA_AXIS)
+        if curve.ndim == 1:                # shared data pairs across chains
+            curve = curve.expand(a0.shape + curve.shape)
 
-    def logpost(x):
-        return _conc_terms(x, T, b) + grid.curve_at(curve, x)
+        def logpost(x):
+            return _conc_terms(x, T, b) + grid.curve_at(curve, x)
 
-    mid, lo, hi = a_bounds(a0)
-    return _mcmc_1d(logpost, gen, mid, lo, hi, loops, kernel)
+        mid, lo, hi = a_bounds(a0)
+        return _mcmc_1d(logpost, gen, mid, lo, hi, loops, kernel)
 
 
 def sample_a_rebuild(gen, a0, ns, ts, T, b, n_max: int, m_max: int,
@@ -317,56 +320,59 @@ def sample_b(gen, b0, N, T, a, shape: float, scale: float,
     density evaluations as a third element (ARS; 0 for the slice kernel
     and for conjugate chains).
     """
-    dt, dev = b0.dtype, b0.device
-    a = torch.as_tensor(a, dtype=dt, device=dev).expand(b0.shape)
-    N = torch.as_tensor(N, dtype=dt, device=dev)
-    T = torch.as_tensor(T, dtype=dt, device=dev)
-    if N.ndim < b0.ndim + 1:
-        N = N.expand(b0.shape + N.shape[-1:])
-    if T.ndim < b0.ndim + 1:
-        T = T.expand(b0.shape + T.shape[-1:])
+    with metrics.span("hyper.sample_b"):
+        dt, dev = b0.dtype, b0.device
+        a = torch.as_tensor(a, dtype=dt, device=dev).expand(b0.shape)
+        N = torch.as_tensor(N, dtype=dt, device=dev)
+        T = torch.as_tensor(T, dtype=dt, device=dev)
+        if N.ndim < b0.ndim + 1:
+            N = N.expand(b0.shape + N.shape[-1:])
+        if T.ndim < b0.ndim + 1:
+            T = T.expand(b0.shape + T.shape[-1:])
 
-    # auxiliary variables (sampleb.c:90-100); N_i==0 groups contribute 0.
-    # log q ~ log Beta(b, N_i) from two loggamma draws, so small b does not
-    # underflow q to 0 in f32 (the reference exits(1) there, sampleb.c:96).
-    bshape = torch.broadcast_shapes(b0[..., None].shape, N.shape)
-    lg1 = rng.loggamma(gen, torch.clamp(b0[..., None], min=B_MIN * 1e-3)
-                       .expand(bshape))
-    lg2 = rng.loggamma(gen, torch.clamp(N, min=1.0).expand(bshape))
-    logq = lg1 - torch.logaddexp(lg1, lg2)
-    logq = torch.where(N > 0, logq, 0.0)
-    Q = 1.0 / scale - torch.sum(logq, dim=-1)
+        # auxiliary variables (sampleb.c:90-100); N_i==0 groups contribute
+        # 0.  log q ~ log Beta(b, N_i) from two loggamma draws, so small b
+        # does not underflow q to 0 in f32 (the reference exits(1) there,
+        # sampleb.c:96).
+        bshape = torch.broadcast_shapes(b0[..., None].shape, N.shape)
+        lg1 = rng.loggamma(gen, torch.clamp(b0[..., None], min=B_MIN * 1e-3)
+                           .expand(bshape))
+        lg2 = rng.loggamma(gen, torch.clamp(N, min=1.0).expand(bshape))
+        logq = lg1 - torch.logaddexp(lg1, lg2)
+        logq = torch.where(N > 0, logq, 0.0)
+        Q = 1.0 / scale - torch.sum(logq, dim=-1)
 
-    # a == 0: conjugate Gamma (sampleb.c:101-118)
-    Tsum = shape + torch.sum(T, dim=-1)
-    conj = torch.clamp(rng.gamma(gen, Tsum) / Q, B_MIN, B_MAX)
+        # a == 0: conjugate Gamma (sampleb.c:101-118)
+        Tsum = shape + torch.sum(T, dim=-1)
+        conj = torch.clamp(rng.gamma(gen, Tsum) / Q, B_MIN, B_MAX)
 
-    # a > 0: slice / ARS on bterms (sampleb.c:119-153)
-    def logpost(x):
-        return _bterms(x, Q, T, shape, a)
+        # a > 0: slice / ARS on bterms (sampleb.c:119-153)
+        def logpost(x):
+            return _bterms(x, Q, T, shape, a)
 
-    if kernel == "ars":
-        # ARS over the full [B_MIN, B_MAX] range wastes envelope points on
-        # a 2000-wide domain; bound it around the Newton mode like the
-        # reference's ARS setup does via its initial points
-        # (sampleb.c:125-131).  ARS draws are (approximately) independent
-        # conditional draws, so a mode-informed window is safe.
-        mode = _bmax(torch.clamp(b0, B_MIN, B_MAX), Q, T, shape, a)
-        lo = torch.clamp(mode * 0.05, min=B_MIN)
-        hi = torch.clamp(mode * 20.0 + 1.0, max=B_MAX)
-        start = mode
-    else:
-        # The slice transition must start at the CURRENT value: a mode
-        # start breaks detailed balance (libstb_tpu's sample_b notes the
-        # measured ~15% bias)
-        lo = torch.full_like(b0, B_MIN)
-        hi = torch.full_like(b0, B_MAX)
-        start = torch.clamp(b0, B_MIN, B_MAX)
-    res = _mcmc_1d(logpost, gen, start, lo, hi, loops, kernel,
-                   with_info=with_info)
-    out = torch.where(a > 0, res[0], conj)
-    ok = res[1] | (a <= 0)
-    if with_info:
-        # conjugate (a==0) chains draw exactly, no density evals
-        return out, ok, torch.where(a > 0, res[2], 0)
-    return out, ok
+        if kernel == "ars":
+            # ARS over the full [B_MIN, B_MAX] range wastes envelope points
+            # on a 2000-wide domain; bound it around the Newton mode like
+            # the reference's ARS setup does via its initial points
+            # (sampleb.c:125-131).  ARS draws are (approximately)
+            # independent conditional draws, so a mode-informed window is
+            # safe.
+            mode = _bmax(torch.clamp(b0, B_MIN, B_MAX), Q, T, shape, a)
+            lo = torch.clamp(mode * 0.05, min=B_MIN)
+            hi = torch.clamp(mode * 20.0 + 1.0, max=B_MAX)
+            start = mode
+        else:
+            # The slice transition must start at the CURRENT value: a mode
+            # start breaks detailed balance (libstb_tpu's sample_b notes the
+            # measured ~15% bias)
+            lo = torch.full_like(b0, B_MIN)
+            hi = torch.full_like(b0, B_MAX)
+            start = torch.clamp(b0, B_MIN, B_MAX)
+        res = _mcmc_1d(logpost, gen, start, lo, hi, loops, kernel,
+                       with_info=with_info)
+        out = torch.where(a > 0, res[0], conj)
+        ok = res[1] | (a <= 0)
+        if with_info:
+            # conjugate (a==0) chains draw exactly, no density evals
+            return out, ok, torch.where(a > 0, res[2], 0)
+        return out, ok

@@ -4,7 +4,8 @@ Port of libstb_tpu/samplers/slice.py: SliceSimple (lib/sslice.c:33-80)
 with interval shrinking toward the last accepted point and a 200-try cap,
 all chains proposing in lockstep with finished chains masked.  The JAX
 ``while_loop`` becomes a Python loop that reads ``all(done)`` back from
-the device once per try.
+the device once per try (the span ``stb/slice.read``, inside one
+``stb/slice.move`` a loop).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Callable
 import torch
 
 from ..core import rng
+from ..utils import metrics
 
 __all__ = ["slice_sample", "TOOMANY"]
 
@@ -41,22 +43,27 @@ def slice_sample(logpost: Callable, gen, x0, lo, hi,
     x = x0
     ok = torch.ones(x0.shape, dtype=torch.bool, device=dev)
     for _ in range(loops):
-        y = logpost(x) + torch.log(rng.uniform(gen, x.shape, dt, dev))
-        xp, rlo, rhi = x, lo, hi
-        done = torch.zeros(x.shape, dtype=torch.bool, device=dev)
-        tries = 0
-        while tries < max_tries and not bool(done.all()):
-            u = rng.uniform(gen, xp.shape, dt, dev)
-            xprop = rlo + u * (rhi - rlo)
-            accept = logpost(xprop) > y
-            live = ~done
-            shrink = live & ~accept
-            # shrink toward the last accepted point (sslice.c:62-68)
-            rlo = torch.where(shrink & (xprop < xp), xprop, rlo)
-            rhi = torch.where(shrink & (xprop >= xp), xprop, rhi)
-            xp = torch.where(live & accept, xprop, xp)
-            done = done | accept
-            tries += 1
-        x = xp
-        ok = ok & done
+        with metrics.span("slice.move"):
+            y = logpost(x) + torch.log(rng.uniform(gen, x.shape, dt, dev))
+            xp, rlo, rhi = x, lo, hi
+            done = torch.zeros(x.shape, dtype=torch.bool, device=dev)
+            tries = 0
+            while tries < max_tries:
+                with metrics.span("slice.read"):
+                    finished = bool(done.all())
+                if finished:
+                    break
+                u = rng.uniform(gen, xp.shape, dt, dev)
+                xprop = rlo + u * (rhi - rlo)
+                accept = logpost(xprop) > y
+                live = ~done
+                shrink = live & ~accept
+                # shrink toward the last accepted point (sslice.c:62-68)
+                rlo = torch.where(shrink & (xprop < xp), xprop, rlo)
+                rhi = torch.where(shrink & (xprop >= xp), xprop, rhi)
+                xp = torch.where(live & accept, xprop, xp)
+                done = done | accept
+                tries += 1
+            x = xp
+            ok = ok & done
     return x, ok

@@ -16,14 +16,12 @@ import torch
 from libstb_tpu.core import quadrature as jquad
 from libstb_tpu.models import hpyp as jhpyp
 from libstb_tpu.utils import config as jconfig
-from libstb_tpu.utils import metrics as jmetrics
 from libstb_tpu.utils import yaps as jyaps
 from libstb_tpu_torch.core import quadrature as tquad
 from libstb_tpu_torch.models import hpyp as thpyp
 from libstb_tpu_torch.models import pyp as tpyp
 from libstb_tpu_torch.ops import stirling_cuda as sc
 from libstb_tpu_torch.utils import config as tconfig
-from libstb_tpu_torch.utils import metrics as tmetrics
 from libstb_tpu_torch.utils import yaps as tyaps
 
 torch.set_num_threads(1)
@@ -230,21 +228,6 @@ def test_quadrature_nodes_copy_equal(levels):
     for x, y in zip(tquad._nodes(levels), jquad._nodes(levels)):
         assert x.dtype == y.dtype == np.float64
         np.testing.assert_array_equal(x, y)
-
-
-def test_meter_copy_equal():
-    def fields(c):
-        return [(f.name, f.type, f.default) for f in dataclasses.fields(c)]
-
-    assert fields(tmetrics.Meter) == fields(jmetrics.Meter)
-    meters = [mod.Meter("fill", "cells/s") for mod in (tmetrics, jmetrics)]
-    assert meters[0].report() == meters[1].report()
-    for m in meters:
-        assert m.rate == 0.0
-        m.add(1000, 0.5)
-        m.add(1000, 0.5)
-        assert m.rate == 2000 and m.calls == 2
-    assert meters[0].report() == meters[1].report()
 
 
 @pytest.mark.parametrize("cls", ["TableConfig", "SamplerConfig"])

@@ -1,6 +1,9 @@
 """The port's utils: checkpoint round trip with the generator state,
 resume equal to the straight run (bitwise, on the CPU), load onto an asked
-device, device_timer and trace (Meter's copy: tests/test_torch_package.py)."""
+device, device_timer and trace, and the program's spans: how they nest in
+a traced run, and a traced run's outputs bitwise equal to an untraced
+one's."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -9,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from libstb_tpu_torch.core import agrid, rng
+from libstb_tpu_torch.core import agrid, rng, stirling
 from libstb_tpu_torch.models import driver, pyp
 from libstb_tpu_torch.utils import checkpoint, metrics
 
@@ -116,3 +119,147 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(32, 32).sum()
     assert any("sum" in e.name for e in prof.events())
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+def _stb_spans(logdir):
+    """(name, start, end, thread) of every stb/ span in a trace's file."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        ev = json.load(f)["traceEvents"]
+    return [(e["name"][len("stb/"):], float(e["ts"]),
+             float(e["ts"]) + float(e["dur"]), e["tid"]) for e in ev
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and str(e.get("name", "")).startswith("stb/")]
+
+
+def _parents(spans):
+    """Each span with the name of the innermost other span on its thread
+    that holds it (None at the top)."""
+    out = []
+    for i, (name, t0, t1, tid) in enumerate(spans):
+        holding = [(b - a, n) for k, (n, a, b, th) in enumerate(spans)
+                   if k != i and th == tid and a <= t0 and t1 <= b]
+        out.append((name, min(holding)[1] if holding else None))
+    return out
+
+
+def test_span_is_a_shared_noop_without_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    off = metrics.span("ti.step")
+    assert off is metrics.span("make") and off.__enter__() is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = metrics.span("ti.step")
+        assert isinstance(on, torch.profiler.record_function)
+        assert on.name == "stb/ti.step"
+    assert metrics.span("ti.step") is off
+
+
+_GIBBS = driver.GibbsConfig(iters=3, burnin=1, bcycle=1, acycle=1)
+
+
+def _gibbs(traced_dir=None, timed=False):
+    data = pyp.from_counts(np.array([[3, 1, 0, 2], [0, 4, 1, 1]]))
+    grid = agrid.make_grid(30, 27, g=16, dtype=torch.float64, device="cpu")
+    run, kw = ((driver.run_gibbs_timed, {"chunk": 2}) if timed
+               else (driver.run_gibbs, {}))
+    with (metrics.trace(traced_dir) if traced_dir
+          else contextlib.nullcontext()):
+        return data, run(rng.generator(5, "cpu"), data, grid, 4, 0.5, 5.0,
+                         _GIBBS, **kw)
+
+
+@pytest.fixture(scope="module")
+def traced_gibbs(tmp_path_factory):
+    logdir = str(tmp_path_factory.mktemp("gibbs_trace"))
+    data, out = _gibbs(logdir)
+    return data, out, _stb_spans(logdir)
+
+
+def test_traced_gibbs_spans_nest(traced_gibbs):
+    """TI, bcycle = acycle = 1: every iteration sweeps and moves b and a;
+    S ti.step spans a sweep, a read or more a slice move."""
+    data, _, spans = traced_gibbs
+    want = {"driver.iter": {None}, "ti.sweep": {"driver.iter"},
+            "ti.prepare": {"ti.sweep"}, "ti.step": {"ti.sweep"},
+            "hyper.sample_b": {"driver.iter"},
+            "hyper.sample_a": {"driver.iter"},
+            "hyper.curve": {"hyper.sample_a"},
+            "slice.move": {"hyper.sample_a", "hyper.sample_b"},
+            "slice.read": {"slice.move"}}
+    got = _parents(spans)
+    assert {n for n, _ in got} == set(want)
+    for name, parent in got:
+        assert parent in want[name], (name, parent)
+    names = [n for n, *_ in spans]
+    S = pyp.ti_schedule(data, "group").shape[0]
+    iters = _GIBBS.iters
+    assert names.count("driver.iter") == names.count("ti.sweep") == iters
+    assert names.count("ti.prepare") == iters
+    assert names.count("ti.step") == S * iters
+    assert names.count("hyper.sample_a") == names.count("hyper.curve")
+    assert names.count("hyper.sample_a") == names.count(
+        "hyper.sample_b") == iters
+    assert names.count("slice.move") == 2 * iters
+    moves = [(a, b) for n, a, b, _ in spans if n == "slice.move"]
+    reads = [a for n, a, _, _ in spans if n == "slice.read"]
+    for a, b in moves:
+        assert any(a <= r <= b for r in reads)
+
+
+def test_traced_gibbs_equals_untraced(traced_gibbs):
+    _, traced, _ = traced_gibbs
+    _, plain = _gibbs()
+    assert set(traced) == set(plain)
+    for k, v in plain.items():
+        if isinstance(v, torch.Tensor):
+            assert v.dtype == traced[k].dtype
+            assert torch.equal(v, traced[k]), k
+
+
+def test_traced_timed_gibbs_chunk_end(tmp_path):
+    """run_gibbs_timed: one chunk_end span a chunk on the clock, after
+    its iterations; the outputs equal the untraced run's."""
+    logdir = str(tmp_path / "prof")
+    _, traced = _gibbs(logdir, timed=True)
+    _, plain = _gibbs(timed=True)
+    spans = _stb_spans(logdir)
+    names = [n for n, *_ in spans]
+    # chunks of 2: one off the clock, then iters / 2 on it
+    assert names.count("driver.chunk_end") == -(-_GIBBS.iters // 2)
+    assert names.count("driver.iter") == 2 + traced["iters_done"]
+    assert dict(_parents(spans))["driver.chunk_end"] is None
+    for k in ("t", "T", "a", "b", "tave", "Tave", "aave", "bave"):
+        assert torch.equal(traced[k], plain[k]), k
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 300),
+                                     (torch.float64, 300)])
+def test_traced_make_spans_and_equal(tmp_path, dtype, n):
+    """make: launch, then the S1 pair and its copies inside; the table
+    equal to an untraced make's."""
+    def build():
+        tab = stirling.make(n, 40, n, 40, 0.4, dtype=dtype, device="cpu")
+        return stirling.remake(tab, 0.6)
+
+    logdir = str(tmp_path / "prof")
+    with metrics.trace(logdir):
+        traced = build()
+    plain = build()
+    got = _parents(_stb_spans(logdir))
+    assert sorted(got, key=str) == sorted(
+        [("make", None), ("make.launch", "make"), ("make.s1", "make"),
+         ("make.s1_upload", "make.s1")] * 2, key=str)
+    for f in ("a", "lga1", "s1_hi", "s1_lo", "vtab", "srel"):
+        assert torch.equal(getattr(traced, f), getattr(plain, f)), f
+
+
+def test_traced_s1_anchored_upload(tmp_path):
+    """The anchored S1 pair (make's route on a card) copies its anchors
+    inside make.s1_upload; traced equal to untraced."""
+    logdir = str(tmp_path / "prof")
+    with metrics.trace(logdir):
+        traced = stirling.s1_anchored(0.5, 1 << 10, device="cpu")
+    plain = stirling.s1_anchored(0.5, 1 << 10, device="cpu")
+    assert [n for n, *_ in _stb_spans(logdir)] == ["make.s1_upload"]
+    for x, y in zip(traced, plain):
+        assert torch.equal(x, y)
