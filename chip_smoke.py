@@ -7,7 +7,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   1. build the hand-written kernels K1-K3 (csrc/*.cu, all three sharing
-     csrc/row_walk.cuh) and the probes (csrc/vpu_probe.cu) with nvcc, one
+     csrc/row_walk.cuh), the TI sweep (csrc/ti_sweep.cu) and the probes
+     (csrc/vpu_probe.cu) with nvcc, one
      process per source, all at once, and the native long-double oracle
      (native/stb_ref.cpp) with g++ beside them, before any rank of phase
      16 starts;
@@ -23,7 +24,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
   3. the main path: make_grid(512, 128, g=64) + run_gibbs with 1024
      chains x 125 iterations (the Quick-start's 500 cut to a quarter,
      PERF.md section 4) on crp_generate(0, 4, 20, 100) data, with
-     the kernel's launch count over that run;
+     the kernels' launch counts over that run (the TI sweep's one a
+     sweep);
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
      for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands,
@@ -66,7 +68,13 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      on a discount grid that holds the table's discount as a node, under
      the same draws: equal histograms and equal a in all but at most 2
      of 64 chains; (c) ti_sweep_blocked on a StirlingTable (K2) and on
-     such a grid: E[T_j] within 3 combined SE + 0.05; (d)
+     such a grid: E[T_j] within 3 combined SE + 0.05; then the TI
+     sweep's kernel (csrc/ti_sweep.cu) against its plain loop at the
+     Quick-start's shape (crp_generate(0, 4, 20, 100), 16384 chains,
+     group schedule, a make_grid(512, 128, g=64) K1 grid in f32): t and
+     T bitwise equal over 3 sweeps, the kernel's time (CUDA events)
+     beside its byte bound, the whole sweep's and the plain loop's (host
+     clock), and the kernel's launches, one a sweep; (d)
      special.digamma, trigamma and digamma_inv at 10^6 points on [0.01,
      10^4] against torch.special, and data_curve_sparse against
      data_curve at 2^18 + 5 pairs;
@@ -268,9 +276,10 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def reset_launches(sc):
-    for name in sc.LAUNCHES:
-        sc.LAUNCHES[name] = 0
+def reset_launches(*mods):
+    for mod in mods:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0
 
 
 def host_ms(fn, reps):
@@ -894,13 +903,60 @@ def config_totals(ns, ts):
             (ts * active).sum(1) + one.sum(1))
 
 
+def phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card):
+    """The TI sweep's kernel against its plain loop at the Quick-start's
+    shape: bitwise over 3 sweeps, then the times."""
+    C = 16384
+    grid = agrid.make_grid(512, 128, g=64, device=dev)
+    plan = pyp.ti_plan(data, pyp.ti_schedule(data, "group"), dev)
+    t, T = pyp.init_state(data, C, dev)
+    a = torch.linspace(0.15, 0.85, C, device=dev)
+    b = torch.full((C,), 10.0, device=dev)
+    before = ti_cuda.LAUNCHES["ti_sweep"]
+    for k in range(3):
+        ref = pyp._ti_run_ref(torch.Generator(device=dev).manual_seed(20 + k),
+                              t, T, a, b, grid, plan, True, False)
+        got = pyp._ti_run(torch.Generator(device=dev).manual_seed(20 + k), t,
+                          T, a, b, grid, plan, True, False)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"the TI kernel differs from the plain loop in sweep {k}")
+        check(not torch.equal(got[0], t), f"sweep {k} moved no count")
+        t, T = got
+    gen = torch.Generator(device=dev).manual_seed(30)
+    live, nf, H, vrows, u = pyp._ti_prepare(gen, t, a, grid, plan, True)
+    k_ms = cuda_ms(lambda: ti_cuda.ti_sweep(t, T, a, b, vrows, u, plan, live,
+                                            nf, H, False), 21)
+    sweep_ms = host_ms(lambda: pyp._ti_run(gen, t, T, a, b, grid, plan, True,
+                                           False), 20)
+    ref_ms = host_ms(lambda: pyp._ti_run_ref(gen, t, T, a, b, grid, plan,
+                                             True, False), 5)
+    sweeps = ti_cuda.LAUNCHES["ti_sweep"] - before
+    check(sweeps == 3 + 21 + 20,
+          f"44 kernel sweeps launched the TI kernel {sweeps} times")
+    S, W = plan.flat.shape
+    # the uniforms once, t and T read and written once, a 32-byte sector
+    # of V a lane-step
+    nbytes = (u.numel() * u.element_size() + 2 * 4 * (t.numel() + T.numel())
+              + 32 * S * C * W)
+    bound_ms = nbytes / HBM_BPS * 1e3
+    geo = ti_cuda.sweep_plan(C, W, t[0].numel(), T.shape[1])
+    print(f"   TI kernel at (S={S}, C={C}, W={W}) f32: {k_ms:.4f} ms (CUDA "
+          f"events, median of 21) = {100 * bound_ms / k_ms:.2f}% of its "
+          f"byte bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); the whole "
+          f"sweep (ti.prepare + kernel) {sweep_ms:.4f} ms, the plain loop "
+          f"{ref_ms:.4f} ms (host clock, mean of 20 / 5); geometry {geo}; "
+          f"launches {sweeps} for 44 sweeps [{card}]")
+    return k_ms
+
+
 def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
     """The hyperparameter layer on a single table; returns the kernels'
     launches."""
     from libstb_tpu_torch.core import special
+    from libstb_tpu_torch.ops import ti_cuda
     from libstb_tpu_torch.samplers import hyper
 
-    reset_launches(sc)
+    reset_launches(sc, ti_cuda)
     C, P, max_n, max_t = CONFIG_SHAPE
     t0 = phase(f"10a sample_table_config on make(2048, 64) (K3): {C} chains "
                f"x {P} pairs, n < {max_n}, t < {max_t}")
@@ -1038,6 +1094,10 @@ def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
           f"{np.round(3 * se + 0.05, 3).tolist()}")
     check(bool(np.all(diff <= 3 * se + 0.05)),
           "the sweep on the single table and on the grid disagree on E[T_j]")
+    check(ti_cuda.LAUNCHES["ti_sweep"] == 2 * sweeps,
+          f"{2 * sweeps} sweeps launched the TI kernel "
+          f"{ti_cuda.LAUNCHES['ti_sweep']} times")
+    phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card)
     done(t0)
 
     t0 = phase(f"10d special functions at {SPECIAL_POINTS} points; "
@@ -1096,7 +1156,7 @@ def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
               f"{err:.3g}")
         check(err < rtol, f"data_curve_sparse {dt} off by {err:.3g}")
     done(t0)
-    return dict(sc.LAUNCHES)
+    return {**sc.LAUNCHES, **ti_cuda.LAUNCHES}
 
 
 def check_state(t, T, n, what):
@@ -2713,16 +2773,19 @@ def main():
     done(t0)
     paths = {}                 # launches of each main path, by phase
 
-    t0 = phase("1 build K1, K2, K3, the probes and the native oracle")
+    t0 = phase("1 build K1, K2, K3, the TI sweep, the probes and the native "
+               "oracle")
     from libstb_tpu_torch import native
     from libstb_tpu_torch.ops import _nvcc
+    from libstb_tpu_torch.ops import ti_cuda
     from libstb_tpu_torch.ops import vpu_probe_cuda as vp
-    sources = {**sc.SOURCES, **vp.SOURCES}
+    sources = {**sc.SOURCES, **ti_cuda.SOURCES, **vp.SOURCES}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         gxx = pool.submit(native.build)      # g++ beside the nvcc processes
         _nvcc.build_all(sources)
         for name in sc.KERNELS:
             sc.load(name)
+        ti_cuda.load()
         vp.load()
         so = gxx.result()
     check(native.available(), "the native oracle did not load")
@@ -2803,7 +2866,7 @@ def main():
 
     t0 = phase(f"3 main path: make_grid + run_gibbs (1024 chains x "
                f"{MAIN_ITERS})")
-    reset_launches(sc)
+    reset_launches(sc, ti_cuda)
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
     cfg = driver.GibbsConfig(iters=MAIN_ITERS, bcycle=2, acycle=5)
@@ -2812,9 +2875,12 @@ def main():
                            grid, 1024, 0.5, 10.0, cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    paths["3"] = dict(sc.LAUNCHES)
+    paths["3"] = {**sc.LAUNCHES, **ti_cuda.LAUNCHES}
     launches = paths["3"]["fill_grid"]
     check(launches >= 1, "the main path did not launch K1")
+    check(paths["3"]["ti_sweep"] == MAIN_ITERS,
+          f"{MAIN_ITERS} TI sweeps launched the TI kernel "
+          f"{paths['3']['ti_sweep']} times")
     for k in ("tave", "Tave", "aave", "bave", "t", "T", "a", "b"):
         check(bool(torch.isfinite(out[k].double()).all()), f"{k} not finite")
     check(tuple(out["Tave"].shape) == (1024, 4), "Tave shape")
@@ -2828,7 +2894,8 @@ def main():
               "T_j outside [occupied categories, N_j]")
     print(f"   E[T_j] {out['Tave_mean'].tolist()} E[a] "
           f"{out['aave_mean'].item():.6g} E[b] {out['bave_mean'].item():.6g}")
-    print(f"   run_gibbs wall {run_s:.3f} s; K1 launches {launches} [{card}]")
+    print(f"   run_gibbs wall {run_s:.3f} s; K1 launches {launches}, TI "
+          f"sweep launches {paths['3']['ti_sweep']} [{card}]")
     done(t0)
 
     t0 = phase("4 gate vs JAX CPU-f64 moments (f32 on this card)")
@@ -2870,10 +2937,11 @@ def main():
              "K3_65536": k3["ms"]}
     paths["19"], probes = phase19_probes(dev, vp, card, fills)
     # every kernel of a path was launched in that path's own run
-    for path, names in (("3", ["fill_grid"]),
+    for path, names in (("3", ["fill_grid", "ti_sweep"]),
                         ("7", ["fill_table", "fill_table_cols"]),
                         ("9", ["fill_grid"]),
-                        ("10", ["fill_table", "fill_table_cols"]),
+                        ("10", ["fill_table", "fill_table_cols",
+                                "ti_sweep"]),
                         ("11", ["fill_grid"]),
                         ("12", ["fill_table"]),
                         ("13", ["fill_grid"]),
@@ -2922,6 +2990,12 @@ def main():
         "replaces": "libstb_tpu/ops/stirling_pallas.py:652",
         **path_launches("fill_table_cols"),
         **k3,
+    }, {
+        "name": "ti_sweep",
+        "route": "cuda",
+        "source": "libstb_tpu_torch/csrc/ti_sweep.cu",
+        "replaces": None,
+        **path_launches("ti_sweep"),
     }] + [{
         "name": name,
         "route": "cuda",

@@ -6,8 +6,10 @@ tests/test_torch_pyp.py and tests/test_torch_sweeps.py hold the copies
 array-equal to the originals) and every sweep of the check.c samplers,
 batched over chains:
 
-* TI: ``ti_sweep`` / ``ti_sweep_blocked`` (item order or a schedule) and
-  the pair-major ``ti_sweep_pairs`` family (check.c scale);
+* TI: ``ti_sweep`` / ``ti_sweep_blocked`` (item order or a schedule; on
+  a CUDA device all of a sweep's steps are one launch of
+  ops/ti_cuda.py's kernel, on the CPU the plain loop ``_ti_run_ref``)
+  and the pair-major ``ti_sweep_pairs`` family (check.c scale);
 * CT / CTW: ``ct_sweep`` over the full candidate range (with a window,
   the check.c '-c' bound, or per-chain counts and base for HPYP) and
   ``ctw_sweep_rel`` over a relative window;
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core import agrid, rng, stirling
+from ..ops import ti_cuda
 from ..utils import metrics, yaps
 
 _warned_cat_mode = False
@@ -253,9 +256,48 @@ def ti_plan(data: PYPData, sched: np.ndarray, device) -> TIPlan:
                   pair_n=dev(data.n[jv, iv].astype(np.int64)), mq=mq)
 
 
+def _ti_prepare(gen, t, a, tab: Table, plan: TIPlan, skip_first: bool):
+    """What every step of a sweep reads besides the state: the live slots,
+    n and H in the sweep's dtype, the V rows of the occupied pairs and the
+    sweep's one block of uniforms."""
+    dt = a.dtype
+    C = t.shape[0]
+    S, W = plan.flat.shape
+    live = plan.free & ~plan.first if skip_first else plan.free
+    nf = plan.cnt.to(dt)
+    H = plan.H.to(dt)
+    mvec = torch.arange(1, plan.mq + 1, device=t.device)
+    # (C, P * mq) from a grid; one (1, P * mq) block from a single table,
+    # which every chain reads through an expanded view
+    vrows = _vq(tab, plan.pair_n[None, :, None], mvec[None, None, :],
+                a[:, None, None]).to(dt)
+    vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
+    u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
+    return live, nf, H, vrows, u
+
+
 def _ti_run(gen, t, T, a, b, tab: Table, plan: TIPlan,
             skip_first: bool, legacy_odds: bool):
-    """The TI conditional updates of ``plan``'s steps in order.
+    """The TI conditional updates of ``plan``'s steps in order: the plain
+    loop (``_ti_run_ref``) on the CPU, one launch of the sweep's kernel
+    (ops/ti_cuda.py) on a CUDA device, which it equals bitwise for the
+    same draws."""
+    if t.device.type == "cpu":
+        return _ti_run_ref(gen, t, T, a, b, tab, plan, skip_first,
+                           legacy_odds)
+    with metrics.span("ti.sweep"):
+        with metrics.span("ti.prepare"):
+            live, nf, H, vrows, u = _ti_prepare(gen, t, a, tab, plan,
+                                                skip_first)
+        with metrics.span("ti.kernel"):
+            return ti_cuda.ti_sweep(t, T, a, b, vrows, u, plan, live, nf, H,
+                                    legacy_odds)
+
+
+def _ti_run_ref(gen, t, T, a, b, tab: Table, plan: TIPlan,
+                skip_first: bool, legacy_odds: bool):
+    """The plain version of the sweep: its steps as a loop of PyTorch
+    operations, on any device.
 
     Acceptance odds H_i (b + T a) V(n, t+1) t / (n - t) after removal of
     the item's indicator, or the reference's t / (n - t + 1) with
@@ -263,22 +305,14 @@ def _ti_run(gen, t, T, a, b, tab: Table, plan: TIPlan,
     derivation and the measured bias of the legacy form)."""
     dt = a.dtype
     C = t.shape[0]
-    S, W = plan.flat.shape
+    S = plan.flat.shape[0]
     with metrics.span("ti.sweep"):
         with metrics.span("ti.prepare"):
             t = t.clone()
             T = T.clone()
             tf = t.view(C, -1)
-            live = plan.free & ~plan.first if skip_first else plan.free
-            nf = plan.cnt.to(dt)
-            H = plan.H.to(dt)
-            mvec = torch.arange(1, plan.mq + 1, device=t.device)
-            # (C, P * mq) from a grid; one (1, P * mq) block from a single
-            # table, which every chain reads through an expanded view
-            vrows = _vq(tab, plan.pair_n[None, :, None],
-                        mvec[None, None, :], a[:, None, None]).to(dt)
-            vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
-            u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
+            live, nf, H, vrows, u = _ti_prepare(gen, t, a, tab, plan,
+                                                skip_first)
             a2 = a[:, None]
             b2 = b[:, None]
         for s in range(S):
