@@ -466,7 +466,10 @@ def ensure_grid(grid: AGridTable, n: int, m: int,
     new_n = min(_grow_bucket(grid.n_max, max(n, grid.n_max)), grid._hard_n())
     new_m = min(_grow_bucket(grid.m_max, max(m, grid.m_max)), new_n,
                 grid._hard_m())
-    avec = grid.avec.cpu().numpy().astype(np.float64)
+    # the discounts make_grid filled, in f64 (grid.avec holds them in the
+    # grid's dtype: refilled there, an f32 grid's S1 would move by ~1e-6)
+    avec = np.linspace(grid.a0, grid.a0 + grid.da * (grid.g_max - 1),
+                       grid.g_max)
     s1 = np.stack([stirling.s1_host(float(a), new_n) for a in avec])
     return _finish_grid(avec, s1, new_n, new_m,
                         grid.srel is not None, grid.vtab is not None,

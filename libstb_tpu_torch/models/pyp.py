@@ -27,6 +27,7 @@ the JAX sweep's keys would, so ``rng.Replay`` can hand the JAX draws over.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -602,9 +603,44 @@ def _ct_conditional(srel, ni, ti, Tj, a, b, Hi, tmax: int, window,
     return lw
 
 
+def ct_srel_pos(n, tmax: int, device) -> torch.Tensor:
+    """The flat positions (j, i, t - 1) of the (J, D, tmax) Srel block at
+    which t <= n[j, i], for the host counts ``n`` (J, D): the candidates
+    a CT sweep of these counts can draw.  Made on the host, so it waits
+    for nothing on the device."""
+    tts = np.arange(1, tmax + 1)
+    pos = np.flatnonzero(tts <= np.asarray(n)[..., None])
+    return torch.as_tensor(pos, device=device)
+
+
+def _ct_srel(tab: Table, n_all, tmax: int, a, pos=None):
+    """The Srel block a CT sweep reads: Srel(n, t) for every count of
+    ``n_all`` ((C or 1, J, D)) and candidate t = 1..tmax, at each chain's
+    discount ``a`` (C,) on a grid; (C, J, D, tmax), expanded over the
+    chains where the counts are shared and the table has one discount.
+
+    Counts shared by the chains on a grid, with ``pos`` their
+    ``ct_srel_pos``: the grid is read only at the candidates t <= n, the
+    only ones a sweep can draw, and the rest of the block is -inf, as
+    ``Srel`` gives it there; each value is the one the whole block's
+    query gives."""
+    with metrics.span("ct.srel"):
+        dev = n_all.device
+        tts = torch.arange(1, tmax + 1, device=dev)
+        shape = (a.shape[0],) + tuple(n_all.shape[1:]) + (tmax,)
+        if pos is not None:
+            srel = torch.full((shape[0], math.prod(shape[1:])), -torch.inf,
+                              dtype=tab.srel.dtype, device=dev)
+            srel[:, pos] = tab.Srel(n_all.flatten()[pos // tmax],
+                                    tts[pos % tmax], a[:, None])
+            return srel.view(shape)
+        srel = _srelq(tab, n_all[..., None], tts, a[:, None, None, None])
+        return srel.expand(shape)
+
+
 def ct_sweep(gen, t, T, a, b, tab: Table, data: PYPData, tmax: int,
              window: Optional[int] = None, n_arr=None, H_arr=None,
-             maxrel: Optional[float] = None):
+             maxrel: Optional[float] = None, srel_pos=None):
     """Collapsed-table sweep (check.c:868-904; ``window``: check.c:905-943):
     each category in turn resamples t for every (chain, group) by a
     Gumbel-max draw over 1..tmax.
@@ -612,8 +648,12 @@ def ct_sweep(gen, t, T, a, b, tab: Table, data: PYPData, tmax: int,
     ``n_arr`` (C, J, D) / ``H_arr`` (C, D) override the data's counts and
     base with per-chain values (the hierarchical case).  Srel(n_ji, t) is
     the same for the whole sweep, so it is evaluated once, as one (C, J,
-    D, tmax) block (one chain's for a single table with the data's
-    counts).  Draws one (D, C*J, tmax) block of Gumbels."""
+    D, tmax) block (``_ct_srel``, the span ``stb/ct.srel``; one chain's
+    for a single table with the data's counts; on a grid with the data's
+    counts only their candidates, ``srel_pos`` = ``ct_srel_pos(data.n,
+    tmax)``, made here unless a caller that sweeps the same counts again
+    made it once).  Draws one (D, C*J, tmax) block of Gumbels; the loop
+    over the categories is ``stb/ct.scan``."""
     dt, dev = a.dtype, t.device
     n = torch.as_tensor(data.n, device=dev)
     H = torch.as_tensor(data.H, dtype=dt, device=dev)
@@ -622,29 +662,33 @@ def ct_sweep(gen, t, T, a, b, tab: Table, data: PYPData, tmax: int,
     a_f = a[:, None].expand(C, J).reshape(-1)
     b_f = b[:, None].expand(C, J).reshape(-1)
     n_all = n[None] if n_arr is None else n_arr
-    tts = torch.arange(1, tmax + 1, device=dev)
-    srel = _srelq(tab, n_all[..., None], tts, a[:, None, None, None])
-    srel = srel.expand(C, J, D, tmax)
+    if n_arr is not None or not isinstance(tab, agrid.AGridTable):
+        srel_pos = None
+    elif srel_pos is None:
+        srel_pos = ct_srel_pos(data.n, tmax, dev)
+    srel = _ct_srel(tab, n_all, tmax, a, srel_pos)
     g = rng.gumbel(gen, (D, C * J, tmax), dt, dev)
     t = t.clone()
-    for i in range(D):
-        ni = n_all[:, :, i].expand(C, J).reshape(-1)
-        if H_arr is None:
-            Hi = H[i].expand(C * J)
-        else:
-            Hi = H_arr[:, i, None].expand(C, J).reshape(-1)
-        ti_stored = t[:, :, i].reshape(-1)
-        Tj = T.reshape(-1)
-        ti = torch.minimum(ti_stored, ni.to(ti_stored.dtype))  # dyn-n guard
-        # Tj still counts the stored t during a dynamic-n transient, so the
-        # other-categories offset subtracts the stored value
-        lw = _ct_conditional(srel[:, :, i].reshape(C * J, tmax), ni, ti, Tj,
-                             a_f, b_f, Hi, tmax, window, ti_off=ti_stored,
-                             maxrel=maxrel)
-        tt = 1 + torch.argmax(lw + g[i], dim=-1).to(t.dtype)
-        tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
-        T = (Tj + tt - ti_stored).reshape(C, J)
-        t[:, :, i] = tt.reshape(C, J)
+    with metrics.span("ct.scan"):
+        for i in range(D):
+            ni = n_all[:, :, i].expand(C, J).reshape(-1)
+            if H_arr is None:
+                Hi = H[i].expand(C * J)
+            else:
+                Hi = H_arr[:, i, None].expand(C, J).reshape(-1)
+            ti_stored = t[:, :, i].reshape(-1)
+            Tj = T.reshape(-1)
+            # the dyn-n guard; Tj still counts the stored t during a
+            # dynamic-n transient, so the other-categories offset subtracts
+            # the stored value
+            ti = torch.minimum(ti_stored, ni.to(ti_stored.dtype))
+            lw = _ct_conditional(srel[:, :, i].reshape(C * J, tmax), ni, ti,
+                                 Tj, a_f, b_f, Hi, tmax, window,
+                                 ti_off=ti_stored, maxrel=maxrel)
+            tt = 1 + torch.argmax(lw + g[i], dim=-1).to(t.dtype)
+            tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
+            T = (Tj + tt - ti_stored).reshape(C, J)
+            t[:, :, i] = tt.reshape(C, J)
     return t, T
 
 

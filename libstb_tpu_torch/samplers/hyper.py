@@ -117,6 +117,12 @@ def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
             curve = pmesh.sum_over(curve, mesh, pmesh.DATA_AXIS)
         if curve.ndim == 1:                # shared data pairs across chains
             curve = curve.expand(a0.shape + curve.shape)
+        # the moves compare differences of the log posterior only; a curve
+        # of ~1e5 in size (check.c's 10^5 items) rounds each f32
+        # evaluation by ~0.02, as much as a slice level sits below the
+        # current point, and a chain can then run to the try cap.  Taken
+        # from each chain's largest node it rounds by ~1e-5.
+        curve = curve - curve.amax(dim=-1, keepdim=True)
 
         def logpost(x):
             return _conc_terms(x, T, b) + grid.curve_at(curve, x)

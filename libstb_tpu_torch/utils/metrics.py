@@ -31,6 +31,14 @@ count is the number of spans of one name.  The spans, each
 * ``ti.sweep`` (``models/pyp``): one TI sweep; inside it ``ti.prepare``,
   its V rows and block of uniforms, and ``ti.step``, each of its S steps
   (~20 launches);
+* ``ct.srel`` (``models/pyp.ct_sweep``, every CT sweep): the (C, J, D,
+  tmax) block of Srel the sweep reads; ``ct.scan``: its loop over the
+  categories;
+* ``hpyp.iter`` (``models/hpyp``): one HPYP iteration; inside it
+  ``hpyp.level1`` (n0, the predictive p0, the level-1 CT sweep),
+  ``hpyp.level0`` (the level-0 CT sweep) and, every ``hyper_cycle``
+  iterations, ``hpyp.hyper`` (the moves of b1, a1, b0, a0);
+  ``hpyp.chunk_end`` (``run_hpyp_timed``): a chunk's ``synchronize``;
 * ``hyper.sample_a`` (``samplers/hyper``): the move of a; inside it
   ``hyper.curve``, its data curve; ``hyper.sample_b``: the move of b;
 * ``slice.move`` (``samplers/slice``): one slice move of all chains;

@@ -311,6 +311,27 @@ def test_ensure_grid_matches_jax():
         jag.ensure_grid(jg, 10_000, 10, quit_on_bound=True)
 
 
+@pytest.mark.parametrize("g,a_hi", [(64, 0.99), (48, 0.99), (100, 0.99)])
+def test_ensure_grid_f32_refills_make_grids_discounts(g, a_hi):
+    """An f32 grid grown by ensure_grid equals make_grid's at the grown
+    size, and its host S1 within 1e-12: the refill is at the f64
+    discounts (rebuilt from a0 and da, to an ulp), not at the grid's f32
+    copy of them, which at a = 0.99 moves S1 by ~1e-6."""
+    small = tag.make_grid(16, 16, g=g, a_hi=a_hi, dtype=torch.float32,
+                          device="cpu", max_n=512, max_m=512)
+    grown = tag.ensure_grid(small, 100, 60)
+    fresh = tag.make_grid(grown.n_max, grown.m_max, g=g, a_hi=a_hi,
+                          dtype=torch.float32, device="cpu", max_n=512,
+                          max_m=512)
+    assert (grown.n_max, grown.m_max) == (fresh.n_max, fresh.m_max)
+    for k in ("avec", "s1_hi", "vtab", "srel"):
+        assert torch.equal(getattr(grown, k), getattr(fresh, k)), k
+
+    def s1(grid):
+        return grid.s1_hi.to(torch.float64) + grid.s1_lo.to(torch.float64)
+    assert (s1(grown) - s1(fresh)).abs().max() < 1e-12
+
+
 def test_mesh_fill_equals_plain_fill():
     """The sharded fill is ported (tests/test_torch_parallel.py runs it
     under 2 and 4 processes): on a world of one process a mesh gives the
