@@ -7,8 +7,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
   0. device: require CUDA, print the card's name and power limit, turn
      TF32 off;
   1. build the hand-written kernels K1-K3 (csrc/*.cu, all three sharing
-     csrc/row_walk.cuh), the TI sweep (csrc/ti_sweep.cu) and the probes
-     (csrc/vpu_probe.cu) with nvcc, one
+     csrc/row_walk.cuh), the TI sweep (csrc/ti_sweep.cu), the slice moves
+     (csrc/slice_move.cu) and the probes (csrc/vpu_probe.cu) with nvcc, one
      process per source, all at once, and the native long-double oracle
      (native/stb_ref.cpp) with g++ beside them, before any rank of phase
      16 starts;
@@ -25,7 +25,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      chains x 125 iterations (the Quick-start's 500 cut to a quarter,
      PERF.md section 4) on crp_generate(0, 4, 20, 100) data, with
      the kernels' launch counts over that run (the TI sweep's one a
-     sweep);
+     sweep, the slice moves' at least one a move);
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
      for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands,
@@ -77,7 +77,14 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      clock), and the kernel's launches, one a sweep; (d)
      special.digamma, trigamma and digamma_inv at 10^6 points on [0.01,
      10^4] against torch.special, and data_curve_sparse against
-     data_curve at 2^18 + 5 pairs;
+     data_curve at 2^18 + 5 pairs; (e) the slice moves' kernel
+     (csrc/slice_move.cu) against its plain version slice_move_ref at the
+     cells' shapes (16384 x 4, 512 x 100, 512 x 1), both moves, f32 and
+     f64 under the same draws: x and ok equal on >= 99.9% of the chains,
+     the others within 64 eps of the terms' size of the level, one launch
+     a batch; in f32 a move's time by the kernel (host and device, the
+     draws and the read included), by slice_move_ref and by the per-try
+     loop slice_sample, and a launch's device time beside its byte bound;
  11. the check.c samplers: run_gibbs with CT, CTW (w = 10) and HSA (f32,
      K1 grids) against the JAX package's CPU-f64 moments in
      tests/data/torch_check_ref.json, within phase 4's bands, with each
@@ -949,14 +956,115 @@ def phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card):
     return k_ms
 
 
+def phase10e_slice_kernel(dev, card):
+    """The slice moves' kernel (csrc/slice_move.cu) against its plain
+    version slice_move_ref at the cells' shapes, both densities, f32 and
+    f64, on tests/test_torch_slice_kernel.py's inputs: x and ok equal on
+    >= 99.9% of the chains, the rest within the rounding of the level; a
+    launch a batch; then the times of a move by the kernel, by
+    slice_move_ref and by the per-try loop, and of a launch beside its
+    byte bound."""
+    from libstb_tpu_torch.core import rng
+    from libstb_tpu_torch.ops import slice_cuda
+    from libstb_tpu_torch.samplers import slice as slicemod
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_slice_kernel as tsk
+    rows = []
+    for density in ("b", "a"):
+        for C, I in tsk.SHAPES:
+            for dt in (torch.float32, torch.float64):
+                eps = torch.finfo(dt).eps
+                m = tsk.move_inputs(density, C, I, dt, dev, seed=40 + I)
+                draws = []
+                real = rng.uniform
+
+                def counted(*args, **kw):
+                    draws.append(None)
+                    return real(*args, **kw)
+
+                before = slice_cuda.LAUNCHES["slice_move"]
+                rng.uniform = counted
+                try:
+                    got = m.kernel(torch.Generator(device=dev).manual_seed(7))
+                finally:
+                    rng.uniform = real
+                torch.cuda.synchronize()
+                launches = slice_cuda.LAUNCHES["slice_move"] - before
+                batches = -(-(len(draws) - 1) // slice_cuda.K)
+                ref = slice_cuda.slice_move_ref(
+                    m.logpost, torch.Generator(device=dev).manual_seed(7),
+                    m.x0, m.lo, m.hi)
+                u0 = torch.rand((C,), generator=torch.Generator(device=dev)
+                                .manual_seed(7), dtype=dt, device=dev)
+                share, gap = tsk.agreement(m.logpost, m.scale, m.x0, u0, got,
+                                           ref)
+                print(f"   slice move {density} ({C}, {I}) {dt}: x and ok "
+                      f"equal on {100 * share:.3f}% of chains, worst level "
+                      f"gap {gap / eps:.3g} eps of the terms, ok "
+                      f"{100 * float(got[1].double().mean()):.2f}%, "
+                      f"{launches} launches, {batches} batches")
+                check(share >= 0.999, f"slice move {density} ({C}, {I}) "
+                      f"{dt}: {100 * share:.3f}% of chains as the plain "
+                      "version (< 99.9%)")
+                check(gap <= 64 * eps, f"slice move {density} ({C}, {I}) "
+                      f"{dt}: a differing chain {gap / eps:.3g} eps below "
+                      "the level")
+                check(launches == batches, f"{batches} batches launched the "
+                      f"slice kernel {launches} times")
+                if dt != torch.float32:
+                    continue
+                gen = torch.Generator(device=dev).manual_seed(8)
+                k_host = host_ms(lambda: m.kernel(gen), 20)
+                k_dev = cuda_ms(lambda: m.kernel(gen), 21)
+                r_host = host_ms(lambda: slice_cuda.slice_move_ref(
+                    m.logpost, gen, m.x0, m.lo, m.hi), 5)
+                p_host = host_ms(lambda: slicemod.slice_sample(
+                    m.logpost, gen, m.x0, m.lo, m.hi), 5)
+                # each launch's device time, a CUDA-event pair around it
+                pairs, real_launch = [], slice_cuda._launch
+
+                def timed(*args, **kw):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    real_launch(*args, **kw)
+                    ev[1].record()
+                    pairs.append(ev)
+
+                slice_cuda._launch = timed
+                try:
+                    for _ in range(21):
+                        m.kernel(gen)
+                finally:
+                    slice_cuda._launch = real_launch
+                torch.cuda.synchronize()
+                one = float(np.median([p[0].elapsed_time(p[1])
+                                       for p in pairs]))
+                bound = m.nbytes / HBM_BPS * 1e3
+                print(f"   slice move {density} ({C}, {I}) f32: kernel "
+                      f"move {k_host:.4f} ms host / {k_dev:.4f} ms device "
+                      f"(mean of 20 / median of 21, draws and read "
+                      f"included); a launch of up to K = {slice_cuda.K} "
+                      f"tries {one:.4f} ms (CUDA events, median of "
+                      f"{len(pairs)}) = {100 * bound / one:.2f}% of its byte "
+                      f"bound {bound * 1e3:.3f} us ({m.nbytes / 1e6:.2f} MB)"
+                      f"; slice_move_ref {r_host:.4f} ms, per-try loop "
+                      f"{p_host:.4f} ms (host, mean of 5) [{card}]")
+                rows.append(dict(density=density, C=C, I=I, move_ms=k_host,
+                                 move_dev_ms=k_dev, launch_ms=one,
+                                 bound_ms=bound, ref_ms=r_host,
+                                 loop_ms=p_host))
+    return rows
+
+
 def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
     """The hyperparameter layer on a single table; returns the kernels'
     launches."""
     from libstb_tpu_torch.core import special
-    from libstb_tpu_torch.ops import ti_cuda
+    from libstb_tpu_torch.ops import slice_cuda, ti_cuda
     from libstb_tpu_torch.samplers import hyper
 
-    reset_launches(sc, ti_cuda)
+    reset_launches(sc, ti_cuda, slice_cuda)
     C, P, max_n, max_t = CONFIG_SHAPE
     t0 = phase(f"10a sample_table_config on make(2048, 64) (K3): {C} chains "
                f"x {P} pairs, n < {max_n}, t < {max_t}")
@@ -1156,7 +1264,12 @@ def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
               f"{err:.3g}")
         check(err < rtol, f"data_curve_sparse {dt} off by {err:.3g}")
     done(t0)
-    return {**sc.LAUNCHES, **ti_cuda.LAUNCHES}
+
+    t0 = phase("10e the slice moves' kernel vs slice_move_ref at the "
+               "cells' shapes")
+    phase10e_slice_kernel(dev, card)
+    done(t0)
+    return {**sc.LAUNCHES, **ti_cuda.LAUNCHES, **slice_cuda.LAUNCHES}
 
 
 def check_state(t, T, n, what):
@@ -2773,19 +2886,21 @@ def main():
     done(t0)
     paths = {}                 # launches of each main path, by phase
 
-    t0 = phase("1 build K1, K2, K3, the TI sweep, the probes and the native "
-               "oracle")
+    t0 = phase("1 build K1, K2, K3, the TI sweep, the slice moves, the "
+               "probes and the native oracle")
     from libstb_tpu_torch import native
     from libstb_tpu_torch.ops import _nvcc
-    from libstb_tpu_torch.ops import ti_cuda
+    from libstb_tpu_torch.ops import slice_cuda, ti_cuda
     from libstb_tpu_torch.ops import vpu_probe_cuda as vp
-    sources = {**sc.SOURCES, **ti_cuda.SOURCES, **vp.SOURCES}
+    sources = {**sc.SOURCES, **ti_cuda.SOURCES, **slice_cuda.SOURCES,
+               **vp.SOURCES}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         gxx = pool.submit(native.build)      # g++ beside the nvcc processes
         _nvcc.build_all(sources)
         for name in sc.KERNELS:
             sc.load(name)
         ti_cuda.load()
+        slice_cuda.load()
         vp.load()
         so = gxx.result()
     check(native.available(), "the native oracle did not load")
@@ -2866,7 +2981,7 @@ def main():
 
     t0 = phase(f"3 main path: make_grid + run_gibbs (1024 chains x "
                f"{MAIN_ITERS})")
-    reset_launches(sc, ti_cuda)
+    reset_launches(sc, ti_cuda, slice_cuda)
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     data = pyp.crp_generate(0, 4, 20, 100, 0.5, 10.0)
     cfg = driver.GibbsConfig(iters=MAIN_ITERS, bcycle=2, acycle=5)
@@ -2875,12 +2990,16 @@ def main():
                            grid, 1024, 0.5, 10.0, cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    paths["3"] = {**sc.LAUNCHES, **ti_cuda.LAUNCHES}
+    paths["3"] = {**sc.LAUNCHES, **ti_cuda.LAUNCHES, **slice_cuda.LAUNCHES}
     launches = paths["3"]["fill_grid"]
     check(launches >= 1, "the main path did not launch K1")
     check(paths["3"]["ti_sweep"] == MAIN_ITERS,
           f"{MAIN_ITERS} TI sweeps launched the TI kernel "
           f"{paths['3']['ti_sweep']} times")
+    moves = -(-MAIN_ITERS // cfg.bcycle) - (-MAIN_ITERS // cfg.acycle)
+    check(paths["3"]["slice_move"] >= moves,
+          f"{moves} slice moves launched the slice kernel "
+          f"{paths['3']['slice_move']} times")
     for k in ("tave", "Tave", "aave", "bave", "t", "T", "a", "b"):
         check(bool(torch.isfinite(out[k].double()).all()), f"{k} not finite")
     check(tuple(out["Tave"].shape) == (1024, 4), "Tave shape")
@@ -2895,7 +3014,8 @@ def main():
     print(f"   E[T_j] {out['Tave_mean'].tolist()} E[a] "
           f"{out['aave_mean'].item():.6g} E[b] {out['bave_mean'].item():.6g}")
     print(f"   run_gibbs wall {run_s:.3f} s; K1 launches {launches}, TI "
-          f"sweep launches {paths['3']['ti_sweep']} [{card}]")
+          f"sweep launches {paths['3']['ti_sweep']}, slice launches "
+          f"{paths['3']['slice_move']} for {moves} moves [{card}]")
     done(t0)
 
     t0 = phase("4 gate vs JAX CPU-f64 moments (f32 on this card)")
@@ -2996,6 +3116,12 @@ def main():
         "source": "libstb_tpu_torch/csrc/ti_sweep.cu",
         "replaces": None,
         **path_launches("ti_sweep"),
+    }, {
+        "name": "slice_move",
+        "route": "cuda",
+        "source": "libstb_tpu_torch/csrc/slice_move.cu",
+        "replaces": None,
+        **path_launches("slice_move"),
     }] + [{
         "name": name,
         "route": "cuda",

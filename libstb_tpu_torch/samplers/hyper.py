@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..core import agrid, rng, special, stirling
+from ..ops import slice_cuda
 from ..parallel import mesh as pmesh
 from ..utils import metrics
 from . import ars as arsmod
@@ -43,18 +44,23 @@ SQUEEZEA = 0.2
 
 
 def _mcmc_1d(logpost, gen, x0, lo, hi, loops: int, kernel: str,
-             with_info: bool = False):
+             with_info: bool = False, card=None):
     """Dispatch the 1-D kernel: "slice" (sslice.c route) or "ars"
     (PSAMPLE_ARS route, psample.h:31-37).  ``with_info`` returns a third
     element: the per-chain density-evaluation count for ARS (the arms.c
     neval telemetry), 0 for the slice kernel (the reference exposes no
-    equivalent there)."""
+    equivalent there).  ``card(gen, x0, lo, hi, loops)``: the move's
+    slice kernel (ops/slice_cuda), which replaces the generic loop where
+    the chains lie on a CUDA device."""
     if kernel == "ars":
         return arsmod.ars_sample(logpost, gen, lo, hi, x_prev=x0,
                                  with_info=with_info)
     if kernel != "slice":
         raise ValueError(f"kernel={kernel!r}: \"slice\" or \"ars\"")
-    out = slicemod.slice_sample(logpost, gen, x0, lo, hi, loops=loops)
+    if x0.is_cuda:
+        out = card(gen, x0, lo, hi, loops)
+    else:
+        out = slicemod.slice_sample(logpost, gen, x0, lo, hi, loops=loops)
     if with_info:
         return out[0], out[1], torch.zeros(out[0].shape, dtype=torch.int32,
                                            device=out[0].device)
@@ -68,6 +74,13 @@ def _conc_terms(x, T, b):
     y = b / xT
     val = T * torch.log(xT) + torch.lgamma(T + y) - torch.lgamma(y)
     return torch.sum(val, dim=-1)
+
+
+def _logpost_a(T, b, curve, grid: agrid.AGridTable):
+    """The discount's log posterior on the grid curve: x (C,) -> (C,)."""
+    def logpost(x):
+        return _conc_terms(x, T, b) + grid.curve_at(curve, x)
+    return logpost
 
 
 def a_bounds(a0):
@@ -124,11 +137,13 @@ def sample_a(gen, a0, grid: agrid.AGridTable, ns, ts, T, b,
         # from each chain's largest node it rounds by ~1e-5.
         curve = curve - curve.amax(dim=-1, keepdim=True)
 
-        def logpost(x):
-            return _conc_terms(x, T, b) + grid.curve_at(curve, x)
+        def card(gen, x0, lo, hi, loops):
+            return slice_cuda.slice_move_a(gen, x0, lo, hi, T, b, curve,
+                                           grid, loops)
 
         mid, lo, hi = a_bounds(a0)
-        return _mcmc_1d(logpost, gen, mid, lo, hi, loops, kernel)
+        return _mcmc_1d(_logpost_a(T, b, curve, grid), gen, mid, lo, hi,
+                        loops, kernel, card=card)
 
 
 def sample_a_rebuild(gen, a0, ns, ts, T, b, n_max: int, m_max: int,
@@ -299,6 +314,13 @@ def _bterms(x, Q, T, shape, a):
     return val + torch.sum(torch.lgamma(T + y) - torch.lgamma(y), dim=-1)
 
 
+def _logpost_b(Q, T, shape, a):
+    """The concentration's log posterior for a > 0: x (C,) -> (C,)."""
+    def logpost(x):
+        return _bterms(x, Q, T, shape, a)
+    return logpost
+
+
 def _bmax(x, Q, T, shape, a, iters: int = 5):
     """Newton warm start for the concentration move (sampleb.c:51-68)."""
     safe_a = torch.where(a > 0, a, 1.0)
@@ -353,8 +375,9 @@ def sample_b(gen, b0, N, T, a, shape: float, scale: float,
         conj = torch.clamp(rng.gamma(gen, Tsum) / Q, B_MIN, B_MAX)
 
         # a > 0: slice / ARS on bterms (sampleb.c:119-153)
-        def logpost(x):
-            return _bterms(x, Q, T, shape, a)
+        def card(gen, x0, lo, hi, loops):
+            return slice_cuda.slice_move_b(gen, x0, lo, hi, Q, T, shape,
+                                           a.contiguous(), loops)
 
         if kernel == "ars":
             # ARS over the full [B_MIN, B_MAX] range wastes envelope points
@@ -374,8 +397,8 @@ def sample_b(gen, b0, N, T, a, shape: float, scale: float,
             lo = torch.full_like(b0, B_MIN)
             hi = torch.full_like(b0, B_MAX)
             start = torch.clamp(b0, B_MIN, B_MAX)
-        res = _mcmc_1d(logpost, gen, start, lo, hi, loops, kernel,
-                       with_info=with_info)
+        res = _mcmc_1d(_logpost_b(Q, T, shape, a), gen, start, lo, hi,
+                       loops, kernel, with_info=with_info, card=card)
         out = torch.where(a > 0, res[0], conj)
         ok = res[1] | (a <= 0)
         if with_info:

@@ -5,7 +5,10 @@ with interval shrinking toward the last accepted point and a 200-try cap,
 all chains proposing in lockstep with finished chains masked.  The JAX
 ``while_loop`` becomes a Python loop that reads ``all(done)`` back from
 the device once per try (the span ``stb/slice.read``, inside one
-``stb/slice.move`` a loop).
+``stb/slice.move`` a loop).  This is the loop of the CPU and of the
+moves without a kernel; on a card the moves of a and b
+(samplers/hyper.sample_a / sample_b) run it in ops/slice_cuda's kernel,
+which reads back once a batch of K = 32 tries.
 """
 from __future__ import annotations
 
@@ -16,9 +19,24 @@ import torch
 from ..core import rng
 from ..utils import metrics
 
-__all__ = ["slice_sample", "TOOMANY"]
+__all__ = ["slice_sample", "try_once", "TOOMANY"]
 
 TOOMANY = 200  # sslice.c:24
+
+
+def try_once(logpost, y, u, xp, rlo, rhi, done):
+    """One try of every chain not yet done: the proposal rlo + u (rhi -
+    rlo) is accepted above the level ``y``, else the interval shrinks
+    toward the last accepted point xp (sslice.c:62-68).  Returns the new
+    (xp, rlo, rhi, done)."""
+    xprop = rlo + u * (rhi - rlo)
+    accept = logpost(xprop) > y
+    live = ~done
+    shrink = live & ~accept
+    rlo = torch.where(shrink & (xprop < xp), xprop, rlo)
+    rhi = torch.where(shrink & (xprop >= xp), xprop, rhi)
+    xp = torch.where(live & accept, xprop, xp)
+    return xp, rlo, rhi, done | accept
 
 
 def slice_sample(logpost: Callable, gen, x0, lo, hi,
@@ -53,16 +71,9 @@ def slice_sample(logpost: Callable, gen, x0, lo, hi,
                     finished = bool(done.all())
                 if finished:
                     break
-                u = rng.uniform(gen, xp.shape, dt, dev)
-                xprop = rlo + u * (rhi - rlo)
-                accept = logpost(xprop) > y
-                live = ~done
-                shrink = live & ~accept
-                # shrink toward the last accepted point (sslice.c:62-68)
-                rlo = torch.where(shrink & (xprop < xp), xprop, rlo)
-                rhi = torch.where(shrink & (xprop >= xp), xprop, rhi)
-                xp = torch.where(live & accept, xprop, xp)
-                done = done | accept
+                xp, rlo, rhi, done = try_once(
+                    logpost, y, rng.uniform(gen, xp.shape, dt, dev), xp, rlo,
+                    rhi, done)
                 tries += 1
             x = xp
             ok = ok & done

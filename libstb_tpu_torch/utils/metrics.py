@@ -41,9 +41,12 @@ count is the number of spans of one name.  The spans, each
   ``hpyp.chunk_end`` (``run_hpyp_timed``): a chunk's ``synchronize``;
 * ``hyper.sample_a`` (``samplers/hyper``): the move of a; inside it
   ``hyper.curve``, its data curve; ``hyper.sample_b``: the move of b;
-* ``slice.move`` (``samplers/slice``): one slice move of all chains;
-  inside it ``slice.read``, a host read of ``all(done)``, which drains
-  the queue: one before each try and one that ends the move;
+* ``slice.move`` (``samplers/slice``; on a card ``ops/slice_cuda``): one
+  slice move of all chains; inside it ``slice.read``, a host read, which
+  drains the queue: in the per-try loop one of ``all(done)`` before each
+  try and one that ends the move; on a card, for the moves of a and b,
+  one of the count of chains still live after each batch of K = 32
+  tries (one kernel launch), so that a move's reads are its batches;
 * ``make`` (``core/stirling.make``, so ``remake`` too): one table; inside
   it ``make.launch``, from its entry to the fill kernel's return (route,
   ``a`` to the device, allocation, launch), and ``make.s1``, the S1 pair
