@@ -2892,20 +2892,13 @@ def main():
     from libstb_tpu_torch.ops import _nvcc
     from libstb_tpu_torch.ops import slice_cuda, ti_cuda
     from libstb_tpu_torch.ops import vpu_probe_cuda as vp
-    sources = {**sc.SOURCES, **ti_cuda.SOURCES, **slice_cuda.SOURCES,
-               **vp.SOURCES}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         gxx = pool.submit(native.build)      # g++ beside the nvcc processes
-        _nvcc.build_all(sources)
-        for name in sc.KERNELS:
-            sc.load(name)
-        ti_cuda.load()
-        slice_cuda.load()
-        vp.load()
+        _nvcc.bind_all()                     # every registered library
         so = gxx.result()
     check(native.available(), "the native oracle did not load")
-    done(t0, f"({', '.join(p.name for p in sources.values())} -> sm_90a; "
-             f"{so.name} by g++)")
+    names = ", ".join(lib.source.name for lib in _nvcc.LIBRARIES.values())
+    done(t0, f"({names} -> sm_90a; {so.name} by g++)")
 
     t0 = phase("2a K1 vs plain at (8, 160, 48) and tile edges")
     avec = torch.linspace(0.0, 0.9, 8, dtype=torch.float64, device=dev)

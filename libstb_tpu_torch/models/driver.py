@@ -6,10 +6,12 @@ and HSA samplers and either 1-D kernel (slice or ARS) for the (a, b)
 moves, and ``run_gibbs_timed``, check.c's wall-clock-bounded mode.  The
 JAX package compiles a run into one program (a lax.scan over
 iterations); here the iterations are a Python loop that enqueues each
-step's kernels on the device, and the host waits on the device only
-inside the slice sampler's per-try exit test.  Statistics accumulate on
-the device after burn-in; with ``collect_traces`` the per-iteration (a,
-b) traces and their split-R-hat / ESS come back too.
+step's kernels on the device.  On a card the host waits on the device
+once a batch of K tries in the moves of a and b (the count of chains
+still live, ops/slice_cuda) and at the end of each ``run_gibbs_timed``
+chunk; on the CPU, in the slice sampler's per-try exit test.  Statistics
+accumulate on the device after burn-in; with ``collect_traces`` the
+per-iteration (a, b) traces and their split-R-hat / ESS come back too.
 """
 from __future__ import annotations
 

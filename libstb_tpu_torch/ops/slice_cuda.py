@@ -19,14 +19,13 @@ PyTorch around the caller's log posterior: with samplers/hyper's
 densities it is the kernel's arithmetic but for the order of the group
 sum, and with any density it gives slice_sample's x and ok for the same
 draws.  ``lanes`` sets the geometry: a chain's group count rounded up to a
-power of two, at most 32, threads a chain.  The kernel is built by
-ops/_nvcc.py on first use and bound with ctypes, as the TI sweep is;
-``LAUNCHES["slice_move"]`` counts its launches, one a batch.
+power of two, at most 32, threads a chain.  The kernel is a library of
+ops/_nvcc.py, built on first use; ``LAUNCHES["slice_move"]`` counts its
+launches, one a batch.
 """
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,22 +35,21 @@ from ..core import rng
 from ..samplers.slice import TOOMANY, try_once
 from ..utils import metrics
 
-__all__ = ["K", "LAUNCHES", "SOURCES", "lanes", "load", "slice_move_a",
+__all__ = ["K", "LAUNCHES", "SOURCES", "lanes", "slice_move_a",
            "slice_move_b", "slice_move_ref"]
 
 K = 32                                  # tries a batch (csrc: kBatch)
 LAUNCHES = {"slice_move": 0}
-SOURCES = {"slice_move": Path(__file__).resolve().parent.parent / "csrc"
-           / "slice_move.cu"}
-
-_DENSITY = {"a": 0, "b": 1}
-_lib = None
 # density, (xp, rlo, rhi, y, done, live, x0, lo, hi, u0, T, w, curve, Q, a),
 # (sT0, sT1, sw0, sw1, sc0, sc1), c1, c2, (g_max, C, I, lanes, tries, init),
 # u, stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-             + [ctypes.c_longlong] * 6 + [ctypes.c_double] * 2
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+_LIB = _nvcc.register("slice_move", _nvcc.pair(
+    "slice_move", [ctypes.c_int] + [ctypes.c_void_p] * 15
+    + [ctypes.c_longlong] * 6 + [ctypes.c_double] * 2
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2), LAUNCHES)
+SOURCES = {_LIB.name: _LIB.source}
+
+_DENSITY = {"a": 0, "b": 1}
 
 
 def lanes(groups: int) -> int:
@@ -62,81 +60,44 @@ def lanes(groups: int) -> int:
     return min(32, 1 << (groups - 1).bit_length())
 
 
-def load():
-    """Build the kernel if needed and bind its library (once)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_nvcc.build_all(SOURCES)["slice_move"]))
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"stb_slice_move_{suffix}")
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def _check(x0, lo, hi, per_chain: dict, groups: dict, curve=None,
            nodes: int = 0):
-    """Raise on anything the kernel cannot take; the device last, so that
-    every other check runs on the CPU too.  ``curve``: (C, ``nodes``)."""
-    dt, dev = x0.dtype, x0.device
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"slice_move: dtype {dt} (float32 or float64 only)")
-    C = x0.shape[0] if x0.ndim == 1 else -1
-    I = next(iter(groups.values())).shape[-1]
-    want = {**{k: (x, (C,)) for k, x in
-               (("x0", x0), ("lo", lo), ("hi", hi), *per_chain.items())},
-            **{k: (x, (C, I)) for k, x in groups.items()}}
+    """Raise on anything the kernel cannot take (_nvcc.check; the (C, I)
+    tensors and ``curve``, (C, ``nodes``), at any strides)."""
+    if curve is not None and nodes < 4:
+        raise ValueError(f"slice_move: a grid of {nodes} discounts (the "
+                         "four-tap curve needs 4)")
+    dt = x0.dtype
+    C = x0.shape[0] if x0.ndim == 1 and x0.shape[0] > 0 else -1
+    I = next(iter(groups.values())).shape[-1] or -1
+    args = {k: (x, dt, (C,)) for k, x in
+            (("x0", x0), ("lo", lo), ("hi", hi), *per_chain.items())}
+    args.update({k: (x, dt, (C, I)) for k, x in groups.items()})
     if curve is not None:
-        if nodes < 4:
-            raise ValueError(f"slice_move: a grid of {nodes} discounts (the "
-                             "four-tap curve needs 4)")
-        want["curve"] = (curve, (C, nodes))
-    for name, (x, shape) in want.items():
-        if x.device != dev:
-            raise ValueError(f"slice_move: {name} lies on {x.device}, the "
-                             f"chains on {dev}")
-        if x.dtype != dt:
-            raise TypeError(f"slice_move: {name} has dtype {x.dtype}, not "
-                            f"{dt}")
-        if tuple(x.shape) != shape or C < 1 or I < 1:
-            raise ValueError(f"slice_move: {name} has shape "
-                             f"{tuple(x.shape)}, not {shape}")
-        if x.ndim == 1 and not x.is_contiguous():
-            raise ValueError(f"slice_move: {name} must be contiguous")
-    if dev.type != "cuda":
-        raise ValueError(f"slice_move: the chains lie on {dev}, not on a "
-                         "CUDA device")
+        args["curve"] = (curve, dt, (C, nodes))
+    _nvcc.check("slice_move", x0.device, args, real=dt,
+                strided=(*groups, "curve"))
 
 
 def _launch(density, state, live, x0, lo, hi, u0, T, w, curve, Q, a, c1,
             c2, g_max, us, init):
     xp, rlo, rhi, y, done = state
     C, I = T.shape
-    lib = load()
-    fn = getattr(lib, "stb_slice_move_"
-                 f"{'f32' if x0.dtype == torch.float32 else 'f64'}")
     ptrs = (ctypes.c_void_p * K)(*[u.data_ptr() for u in us])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = fn(_DENSITY[density], xp.data_ptr(), rlo.data_ptr(),
-                 rhi.data_ptr(), y.data_ptr(), done.data_ptr(),
-                 live.data_ptr(), x0.data_ptr(), lo.data_ptr(),
-                 hi.data_ptr(), u0.data_ptr(), T.data_ptr(), ptr(w),
-                 ptr(curve), ptr(Q), ptr(a), T.stride(0), T.stride(1),
-                 0 if w is None else w.stride(0),
-                 0 if w is None else w.stride(1),
-                 0 if curve is None else curve.stride(0),
-                 0 if curve is None else curve.stride(1), c1, c2, g_max, C,
-                 I, lanes(I), len(us), int(init), ptrs, stream)
-    if err != 0:
-        raise RuntimeError(f"slice_move kernel launch failed: cudaError "
-                           f"{err}")
-    LAUNCHES["slice_move"] += 1
+    _LIB.launch(x0.dtype, x0.device, _DENSITY[density], xp.data_ptr(),
+                rlo.data_ptr(), rhi.data_ptr(), y.data_ptr(), done.data_ptr(),
+                live.data_ptr(), x0.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                u0.data_ptr(), T.data_ptr(), ptr(w), ptr(curve), ptr(Q),
+                ptr(a), T.stride(0), T.stride(1),
+                0 if w is None else w.stride(0),
+                0 if w is None else w.stride(1),
+                0 if curve is None else curve.stride(0),
+                0 if curve is None else curve.stride(1), c1, c2, g_max, C, I,
+                lanes(I), len(us), int(init), ptrs)
 
 
 def _moves(density, gen, x0, lo, hi, loops, T, w=None, curve=None, Q=None,

@@ -26,37 +26,39 @@ JAX package runs off the TPU), on a CUDA device the ``*_cuda`` launcher,
 which launches the kernel or raises.  Nothing falls back from a kernel to
 a plain version.
 
-Each kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C interface on first use, from the source in this package only, by
-ops/_nvcc.py (into ``libstb_tpu_torch/_build/``, keyed by a hash of the
-source, every header it includes and the flags; one nvcc per source, all
-at once), and bound with ctypes.
+Each kernel is its own library of ops/_nvcc.py, built on first use;
 ``LAUNCHES[name]`` counts each kernel's launches, so a run can show that
 its fills went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from ..core import stirling
 from . import _nvcc
-from ._nvcc import BUILD_DIR as _BUILD_DIR, NVCC_FLAGS
-from ._nvcc import source_bytes as _source_bytes
 
 __all__ = ["fill_grid", "fill_grid_cuda", "fill_grid_ref", "tile_plan",
            "fill_table", "fill_table_cuda", "fill_table_ref", "cols_plan",
            "fill_table_cols", "fill_table_cols_cuda", "fill_table_cols_ref",
-           "build_all", "load", "KERNELS", "LAUNCHES"]
+           "KERNELS", "LAUNCHES", "SOURCES"]
 
-KERNELS = ("fill_grid", "fill_table", "fill_table_cols")
+_ARGTYPES = {
+    # (a or avec, V, Srel, scratch..., ints..., stream)
+    "fill_grid": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "fill_table": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "fill_table_cols": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+}
+KERNELS = tuple(_ARGTYPES)
 LAUNCHES = {name: 0 for name in KERNELS}
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
+_LIBS = {name: _nvcc.register(name, _nvcc.pair(name, args), LAUNCHES)
+         for name, args in _ARGTYPES.items()}
+SOURCES = {name: lib.source for name, lib in _LIBS.items()}
 # The widest table K2 takes: the limit of its first design (a shared row
 # of f64 1/V per block), which the tiled walk no longer needs but which is
 # all K2 has been tested at; core/stirling.fill_route sends a wider table
@@ -80,64 +82,14 @@ COLS_SMEM_MAX = 232448 - 1024
 TILE_W = 32
 _BLOCKS_PER_SM = 16
 
-_libs: dict = {}
-_ARGTYPES = {
-    # (a or avec, V, Srel, scratch..., ints..., stream)
-    "fill_grid": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
-    "fill_table": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "fill_table_cols": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
-}
 
-
-def _target(name: str) -> Path:
-    return _nvcc.target(name, SOURCES[name])
-
-
-def build_all(names=KERNELS) -> dict:
-    """Compile every named kernel not yet built, one nvcc process per
-    source, all started together; returns {name: .so path}."""
-    return _nvcc.build_all({name: SOURCES[name] for name in names})
-
-
-def load(name: str):
-    """Build kernel ``name`` if needed and bind its library (once)."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"stb_{name}_{suffix}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _check_cuda(fn: str, a: torch.Tensor, n_max: int, m_max: int):
-    if a.device.type != "cuda":
-        raise ValueError(f"{fn}: the discount lies on {a.device}, not on a "
-                         "CUDA device")
-    if a.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{fn}: dtype {a.dtype} (float32 or float64 only)")
-    if not a.is_contiguous():
-        raise ValueError(f"{fn}: the discount tensor must be contiguous")
+def _check(fn: str, a: torch.Tensor, shape, n_max: int, m_max: int):
     if n_max < 1 or m_max < 1:
         raise ValueError(f"{fn}: empty table ({n_max}, {m_max})")
     if a.dtype == torch.float32 and n_max >= _MAX_N_F32:
         raise ValueError(f"{fn}: n_max={n_max} >= 2^24 in f32")
-
-
-def _launch(name: str, a: torch.Tensor, *args):
-    lib = load(name)
-    fn = getattr(lib, f"stb_{name}_"
-                 f"{'f32' if a.dtype == torch.float32 else 'f64'}")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), *args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    _nvcc.check(fn, a.device, {"the discount": (a, a.dtype, shape)},
+                real=a.dtype)
 
 
 # -- K1/K2 geometry: tiles of columns, a halo column between them -----------
@@ -192,9 +144,10 @@ def _walk(name: str, a: torch.Tensor, shape, with_srel: bool):
     halo = torch.full((plan.halo_len,), float("nan"), dtype=torch.float64,
                       device=a.device)
     ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
-    _launch(name, a, vtab.data_ptr(), srel.data_ptr() if with_srel else None,
-            halo.data_ptr(), ticket.data_ptr(), *shape, int(with_srel),
-            plan.tiles, plan.blocks)
+    _LIBS[name].launch(a.dtype, a.device, a.data_ptr(), vtab.data_ptr(),
+                       srel.data_ptr() if with_srel else None,
+                       halo.data_ptr(), ticket.data_ptr(), *shape,
+                       int(with_srel), plan.tiles, plan.blocks)
     return vtab, srel
 
 
@@ -212,9 +165,7 @@ def fill_grid_ref(avec: torch.Tensor, n_max: int, m_max: int,
 def fill_grid_cuda(avec: torch.Tensor, n_max: int, m_max: int,
                    with_srel: bool = True):
     """Launch K1 on ``avec``'s device; same outputs as fill_grid_ref."""
-    _check_cuda("fill_grid_cuda", avec, n_max, m_max)
-    if avec.ndim != 1:
-        raise ValueError("fill_grid_cuda: avec must be a (G,) vector")
+    _check("fill_grid_cuda", avec, (None,), n_max, m_max)
     return _walk("fill_grid", avec, (avec.shape[0], n_max, m_max), with_srel)
 
 
@@ -242,7 +193,7 @@ def fill_table_ref(a: torch.Tensor, n_max: int, m_max: int,
 def fill_table_cuda(a: torch.Tensor, n_max: int, m_max: int,
                     with_srel: bool = True):
     """Launch K2 on ``a``'s device; same outputs as fill_table_ref."""
-    _check_cuda("fill_table_cuda", a, n_max, m_max)
+    _check("fill_table_cuda", a, None, n_max, m_max)
     if a.numel() != 1:
         raise ValueError("fill_table_cuda: one discount only")
     if m_max > TABLE_MAX_M:
@@ -329,7 +280,7 @@ def fill_table_cols_ref(a: torch.Tensor, n_max: int, m_max: int,
 def fill_table_cols_cuda(a: torch.Tensor, n_max: int, m_max: int,
                          with_srel: bool = True):
     """Launch K3 on ``a``'s device; same outputs as fill_table_cols_ref."""
-    _check_cuda("fill_table_cols_cuda", a, n_max, m_max)
+    _check("fill_table_cols_cuda", a, None, n_max, m_max)
     if a.numel() != 1:
         raise ValueError("fill_table_cols_cuda: one discount only")
     if n_max >= COLS_MAX_N:
@@ -341,10 +292,11 @@ def fill_table_cols_cuda(a: torch.Tensor, n_max: int, m_max: int,
     halo = torch.full((plan.halo_len,), float("nan"), dtype=torch.float64,
                       device=a.device)
     ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
-    _launch("fill_table_cols", a, vtab.data_ptr(),
-            srel.data_ptr() if with_srel else None, halo.data_ptr(),
-            ticket.data_ptr(), n_max, m_max, int(with_srel), plan.chunk,
-            plan.chunks, plan.blocks, plan.smem)
+    _LIBS["fill_table_cols"].launch(
+        a.dtype, a.device, a.data_ptr(), vtab.data_ptr(),
+        srel.data_ptr() if with_srel else None, halo.data_ptr(),
+        ticket.data_ptr(), n_max, m_max, int(with_srel), plan.chunk,
+        plan.chunks, plan.blocks, plan.smem)
     return vtab, srel
 
 

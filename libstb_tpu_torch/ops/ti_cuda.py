@@ -15,37 +15,33 @@ to a block's 256 threads, each then taking every tpc-th slot), ``cpb``
 chains a block, and the dynamic shared memory that holds the block's
 chains (their t and T rows and a stage of W deltas); where one chain does
 not fit, the state lives in the output tensors and the stage in a
-scratch.  The kernel is built by ops/_nvcc.py on first use and bound with
-ctypes, as K1-K3 are; ``LAUNCHES["ti_sweep"]`` counts its launches, so a
-run can show that its sweeps took the kernel.
+scratch.  The kernel is a library of ops/_nvcc.py, built on first use;
+``LAUNCHES["ti_sweep"]`` counts its launches, so a run can show that its
+sweeps took the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from . import _nvcc
 
-__all__ = ["LAUNCHES", "SOURCES", "SweepPlan", "sweep_plan", "load",
-           "ti_sweep"]
+__all__ = ["LAUNCHES", "SOURCES", "SweepPlan", "sweep_plan", "ti_sweep"]
 
 LAUNCHES = {"ti_sweep": 0}
-SOURCES = {"ti_sweep": Path(__file__).resolve().parent.parent / "csrc"
-           / "ti_sweep.cu"}
+# (t_in, T_in, t_out, T_out, stage, a, b, vrows, u, nf, H, flat, grp, cnt,
+#  vbase, live), vstride, (C, S, W, cells, groups, mq, legacy, tpc, cpb,
+#  blocks, smem), stream
+_LIB = _nvcc.register("ti_sweep", _nvcc.pair(
+    "ti_sweep", [ctypes.c_void_p] * 16 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 11 + [ctypes.c_void_p]), LAUNCHES)
+SOURCES = {_LIB.name: _LIB.source}
 
 BLOCK_THREADS = 256                   # csrc/ti_sweep.cu: kThreads
 # the shared memory a block may have (227 KB on Hopper)
 SMEM_MAX = 232448
-
-_lib = None
-# (t_in, T_in, t_out, T_out, stage, a, b, vrows, u, nf, H, flat, grp, cnt,
-#  vbase, live), vstride, (C, S, W, cells, groups, mq, legacy, tpc, cpb,
-#  blocks, smem), stream
-_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
-             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 class SweepPlan(NamedTuple):
@@ -81,30 +77,25 @@ def sweep_plan(C: int, W: int, cells: int, groups: int) -> SweepPlan:
     return SweepPlan(tpc, cpb, -(-C // cpb), smem)
 
 
-def load():
-    """Build the kernel if needed and bind its library (once)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_nvcc.build_all(SOURCES)["ti_sweep"]))
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"stb_ti_sweep_{suffix}")
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def _check(t, T, a, b, vrows, u, plan, live, nf, H):
-    """Raise on anything the kernel cannot take; the device last, so that
-    every other check runs on the CPU too."""
-    dev = t.device
-    dt = a.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"ti_sweep: dtype {dt} (float32 or float64 only)")
+    """Raise on anything the kernel cannot take (_nvcc.check, and the V
+    rows' own stride rule)."""
+    dev, dt = t.device, a.dtype
     S, W = plan.flat.shape
-    C = t.shape[0] if t.ndim == 3 else -1
-    J = t.shape[1] if t.ndim == 3 else -1
-    want = {
+    C, J = t.shape[:2] if t.ndim == 3 else (-1, -1)
+    width = plan.pair_n.numel() * plan.mq
+
+    def check_vrows():
+        if (vrows.device != dev or vrows.dtype != dt or vrows.ndim != 2
+                or tuple(vrows.shape) != (C, width) or vrows.stride(1) != 1
+                or vrows.stride(0) not in (0, width)):
+            raise ValueError(
+                f"ti_sweep: vrows must be ({C}, {width}) {dt} on {dev}, rows "
+                f"contiguous at a stride of {width} or 0; it is "
+                f"{tuple(vrows.shape)} {vrows.dtype} on {vrows.device}, "
+                f"strides {vrows.stride()}")
+
+    _nvcc.check("ti_sweep", dev, {
         "t": (t, torch.int32, (C, J, None)), "T": (T, torch.int32, (C, J)),
         "a": (a, dt, (C,)), "b": (b, dt, (C,)),
         "u": (u, dt, (S, 2, C, W)), "live": (live, torch.bool, (S, W)),
@@ -112,32 +103,8 @@ def _check(t, T, a, b, vrows, u, plan, live, nf, H):
         "flat": (plan.flat, torch.int64, (S, W)),
         "grp": (plan.grp, torch.int64, (S, W)),
         "cnt": (plan.cnt, torch.int64, (S, W)),
-        "vbase": (plan.vbase, torch.int64, (S, W))}
-    for name, (x, dtype, shape) in want.items():
-        if x.device != dev:
-            raise ValueError(f"ti_sweep: {name} lies on {x.device}, the "
-                             f"state on {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"ti_sweep: {name} has dtype {x.dtype}, not "
-                            f"{dtype}")
-        if len(x.shape) != len(shape) or any(
-                s is not None and n != s for n, s in zip(x.shape, shape)):
-            raise ValueError(f"ti_sweep: {name} has shape {tuple(x.shape)}, "
-                             f"not {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"ti_sweep: {name} must be contiguous")
-    width = plan.pair_n.numel() * plan.mq
-    if (vrows.device != dev or vrows.dtype != dt or vrows.ndim != 2
-            or tuple(vrows.shape) != (C, width) or vrows.stride(1) != 1
-            or vrows.stride(0) not in (0, width)):
-        raise ValueError(
-            f"ti_sweep: vrows must be ({C}, {width}) {dt} on {dev}, rows "
-            f"contiguous at a stride of {width} or 0; it is "
-            f"{tuple(vrows.shape)} {vrows.dtype} on {vrows.device}, strides "
-            f"{vrows.stride()}")
-    if dev.type != "cuda":
-        raise ValueError(f"ti_sweep: the state lies on {dev}, not on a CUDA "
-                         "device")
+        "vbase": (plan.vbase, torch.int64, (S, W))}, real=dt,
+        then=check_vrows)
 
 
 def ti_sweep(t: torch.Tensor, T: torch.Tensor, a: torch.Tensor,
@@ -157,20 +124,12 @@ def ti_sweep(t: torch.Tensor, T: torch.Tensor, a: torch.Tensor,
     T_out = torch.empty_like(T)
     stage = (None if geo.on_chip else
              torch.empty((C, W), dtype=torch.int32, device=t.device))
-    lib = load()
-    fn = getattr(lib, "stb_ti_sweep_"
-                 f"{'f32' if a.dtype == torch.float32 else 'f64'}")
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = fn(t.data_ptr(), T.data_ptr(), t_out.data_ptr(),
-                 T_out.data_ptr(), None if stage is None else stage.data_ptr(),
-                 a.data_ptr(), b.data_ptr(), vrows.data_ptr(), u.data_ptr(),
-                 nf.data_ptr(), H.data_ptr(), plan.flat.data_ptr(),
-                 plan.grp.data_ptr(), plan.cnt.data_ptr(),
-                 plan.vbase.data_ptr(), live.data_ptr(), vrows.stride(0),
-                 C, S, W, J * D, J, plan.mq, int(legacy_odds), geo.tpc,
-                 geo.cpb, geo.blocks, geo.smem, stream)
-    if err != 0:
-        raise RuntimeError(f"ti_sweep kernel launch failed: cudaError {err}")
-    LAUNCHES["ti_sweep"] += 1
+    _LIB.launch(a.dtype, t.device, t.data_ptr(), T.data_ptr(),
+                t_out.data_ptr(), T_out.data_ptr(),
+                None if stage is None else stage.data_ptr(), a.data_ptr(),
+                b.data_ptr(), vrows.data_ptr(), u.data_ptr(), nf.data_ptr(),
+                H.data_ptr(), plan.flat.data_ptr(), plan.grp.data_ptr(),
+                plan.cnt.data_ptr(), plan.vbase.data_ptr(), live.data_ptr(),
+                vrows.stride(0), C, S, W, J * D, J, plan.mq,
+                int(legacy_odds), geo.tpc, geo.cpb, geo.blocks, geo.smem)
     return t_out, T_out

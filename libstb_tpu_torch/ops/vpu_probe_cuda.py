@@ -40,14 +40,13 @@ and raises on a launch error; it runs on a CUDA device only.  Each
 ``*_ref`` is the plain PyTorch version, giving the same values (the
 kernels' arithmetic is rounded as the plain version's: no contracted
 multiply-adds); the CPU uses it, and chip_smoke.py holds each kernel to it
-on the card.  ``LAUNCHES[name]`` counts each probe's launches.  The source
-is built by ops/_nvcc.py on first use, as K1-K3's.
+on the card.  ``LAUNCHES[name]`` counts each probe's launches.  The probes
+are one library of ops/_nvcc.py, built on first use.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,8 +55,8 @@ import torch
 from . import _nvcc
 from .stirling_cuda import COLS_MAX_N, cols_plan
 
-__all__ = ["PROBES", "LAUNCHES", "SOURCES", "build", "load",
-           "WRITE_MODES", "write_floor_cuda", "write_floor_ref",
+__all__ = ["PROBES", "LAUNCHES", "SOURCES", "WRITE_MODES",
+           "write_floor_cuda", "write_floor_ref",
            "ALU_OPS", "OP_CODES", "ALU_U", "ALU_PERIOD", "alu_rtol",
            "alu_blocks", "alu_cuda", "alu_ref", "SMEM_MODES",
            "headline_chunk", "smem_rows", "smem_cuda", "smem_ref",
@@ -73,8 +72,16 @@ PROBES = ("write_floor", "alu", "smem", "overlap", "mix", "bisect",
           "mix_staged", "bisect_storewarps", "bisect_early",
           "bisect_storewarps_early")
 LAUNCHES = {name: 0 for name in PROBES}
-SOURCES = {"vpu_probe": Path(__file__).resolve().parent.parent / "csrc"
-           / "vpu_probe.cu"}
+_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_LIB = _nvcc.register("vpu_probe", {
+    "stb_vpu_write_full": [_p, _p, _i, _i, _p],
+    "stb_vpu_write_rows": [_p, _p] + [_i] * 7 + [_p],
+    "stb_vpu_alu_occupancy": [_i, _i, _i, ctypes.POINTER(ctypes.c_int)],
+    "stb_vpu_alu": [_i, _i, _i, _p, _d, _d, _d, _d, _i, _i, _p],
+    "stb_vpu_smem": [_i, _i, _p, _d, _i, _i, _i, _p],
+    "stb_vpu_overlap": [_i, _i, _p, _p, _p] + [_i] * 7 + [_d, _d, _d, _p],
+    "stb_vpu_mix": [_i, _i] + [_p] * 7 + [_i] * 9 + [_p]}, LAUNCHES)
+SOURCES = {_LIB.name: _LIB.source}
 
 # the TPU probes' seeds: stream i starts at (X0 + i DX) c, c = 1 + (t % 3)
 # EPS (t: the TPU's grid step; here the thread, or K3's column in P4)
@@ -125,39 +132,10 @@ TINY = 1e-300                           # log_pos's floor for |V|
 # a P5 / P6 block's static shared memory, kept free beside the dynamic
 MIX_STATIC = 1024
 
-_lib = None
-
-
-def build() -> dict:
-    """Build csrc/vpu_probe.cu if needed; {name: .so path}."""
-    return _nvcc.build_all(SOURCES)
-
-
-def load():
-    """Build the probes if needed and bind their library (once)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()["vpu_probe"]))
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for fn, args in (
-                ("stb_vpu_write_full", [p, p, i, i, p]),
-                ("stb_vpu_write_rows", [p, p] + [i] * 7 + [p]),
-                ("stb_vpu_alu_occupancy",
-                 [i, i, i, ctypes.POINTER(ctypes.c_int)]),
-                ("stb_vpu_alu", [i, i, i, p, d, d, d, d, i, i, p]),
-                ("stb_vpu_smem", [i, i, p, d, i, i, i, p]),
-                ("stb_vpu_overlap", [i, i, p, p, p] + [i] * 7 + [d, d, d, p]),
-                ("stb_vpu_mix", [i, i] + [p] * 7 + [i] * 9 + [p])):
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
 
 def _cuda(fn: str, device) -> torch.device:
     device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: {device} is not a CUDA device")
+    _nvcc.check(fn, device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -165,16 +143,6 @@ def _cuda(fn: str, device) -> torch.device:
 
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _launch(name: str, device, fn: str, *args):
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} probe launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
 
 
 def _check_shape(fn: str, n: int, m: int):
@@ -186,13 +154,7 @@ def _check_shape(fn: str, n: int, m: int):
 def _check_out(fn: str, t, shape, dtype, device):
     if t is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    if t.device != device:
-        raise ValueError(f"{fn}: out lies on {t.device}, not {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{fn}: out is {t.dtype} {tuple(t.shape)}, not "
-                         f"{dtype} {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: out must be contiguous")
+    _nvcc.check(fn, device, {"out": (t, dtype, tuple(shape))})
     return t
 
 
@@ -239,8 +201,8 @@ def write_floor_cuda(m: int, n: int, mode: str = "full", piece: int = PIECE,
     s = (None if mode == "onecol" else
          _check_out("write_floor_cuda", out_s, (m, n), torch.float32, device))
     if mode == "full":
-        _launch("write_floor", device, "stb_vpu_write_full", v.data_ptr(),
-                s.data_ptr(), n, m)
+        _LIB.launch("stb_vpu_write_full", device, v.data_ptr(), s.data_ptr(),
+                    n, m, key="write_floor")
         return v, s
     plan = cols_plan(n, m, _sms(device), with_srel=mode == "piecewise")
     piece = piece if mode == "piecewise" else n
@@ -249,9 +211,9 @@ def write_floor_cuda(m: int, n: int, mode: str = "full", piece: int = PIECE,
         raise ValueError(f"write_floor_cuda: {-(-n // piece)} pieces of "
                          f"{piece} rows: their table takes {smem} bytes of "
                          f"shared memory, more than {SMEM_MAX}")
-    _launch("write_floor", device, "stb_vpu_write_rows", v.data_ptr(),
-            None if s is None else s.data_ptr(), n, m, plan.chunk,
-            plan.chunks, plan.blocks, smem, piece)
+    _LIB.launch("stb_vpu_write_rows", device, v.data_ptr(),
+                None if s is None else s.data_ptr(), n, m, plan.chunk,
+                plan.chunks, plan.blocks, smem, piece, key="write_floor")
     return v, s
 
 
@@ -315,10 +277,10 @@ def alu_blocks(op: str, dtype=torch.float64, u: int = 8, device="cuda") -> int:
     device = _cuda("alu_blocks", device)
     _check_alu("alu_blocks", op, dtype, u, 0, ALU_UNROLL)
     per_sm = ctypes.c_int(0)
+    _, query = _LIB.fns()["stb_vpu_alu_occupancy"]
     with torch.cuda.device(device):
-        err = load().stb_vpu_alu_occupancy(int(dtype == torch.float64),
-                                           OP_CODES[op], u,
-                                           ctypes.byref(per_sm))
+        err = query(int(dtype == torch.float64), OP_CODES[op], u,
+                    ctypes.byref(per_sm))
     if err != 0 or per_sm.value < 1:
         raise RuntimeError(f"alu_blocks: occupancy query failed: cudaError "
                            f"{err}, {per_sm.value} blocks an SM")
@@ -333,9 +295,9 @@ def alu_cuda(op: str, dtype=torch.float64, u: int = 8, r: int = 256,
     steps = _check_alu("alu_cuda", op, dtype, u, r, unroll)
     blocks = alu_blocks(op, dtype, u, device)
     out = torch.empty(blocks * ALU_THREADS, dtype=dtype, device=device)
-    _launch("alu", device, "stb_vpu_alu", int(dtype == torch.float64),
-            OP_CODES[op], u, out.data_ptr(), X0, DX, EPS, 1.0,
-            steps // ALU_UNROLL, blocks)
+    _LIB.launch("stb_vpu_alu", device, int(dtype == torch.float64),
+                OP_CODES[op], u, out.data_ptr(), X0, DX, EPS, 1.0,
+                steps // ALU_UNROLL, blocks, key="alu")
     return out
 
 
@@ -384,8 +346,8 @@ def smem_cuda(mode: str, pad: bool = True, chunk: int = None,
         raise ValueError(f"smem_cuda: {steps} steps")
     out = torch.empty(blocks * ROW_THREADS, dtype=torch.float64,
                       device=device)
-    _launch("smem", device, "stb_vpu_smem", SMEM_MODES.index(mode), int(pad),
-            out.data_ptr(), EPS, chunk, steps, blocks)
+    _LIB.launch("stb_vpu_smem", device, SMEM_MODES.index(mode), int(pad),
+                out.data_ptr(), EPS, chunk, steps, blocks, key="smem")
     return out
 
 
@@ -448,9 +410,10 @@ def overlap_cuda(m: int, n: int, iters: int = 128, alu: bool = True,
         sink = torch.empty(plan.blocks * ROW_THREADS, dtype=torch.float64,
                            device=device)
     ptr = (lambda x: None if x is None else x.data_ptr())
-    _launch("overlap", device, "stb_vpu_overlap", int(alu), int(store),
-            ptr(v), ptr(s), ptr(sink), n, m, plan.chunk, plan.chunks,
-            plan.blocks, plan.smem, iters if alu else 0, X0, DX, EPS)
+    _LIB.launch("stb_vpu_overlap", device, int(alu), int(store), ptr(v),
+                ptr(s), ptr(sink), n, m, plan.chunk, plan.chunks,
+                plan.blocks, plan.smem, iters if alu else 0, X0, DX, EPS,
+                key="overlap")
     return (v, s) if store else sink
 
 
@@ -760,20 +723,19 @@ def _mix_launch(name: str, steps, staged: bool, m: int, n: int, piece: int,
     if has("smem"):
         if a is None:
             a = torch.full((1,), A_SMEM, dtype=torch.float32, device=device)
-        if a.device != device or a.dtype != torch.float32 or a.numel() != 1:
-            raise ValueError(f"{fn}: a must be one f32 on {device}")
+        _nvcc.check(fn, device, {"a": (a, torch.float32, (1,))})
     halo = ticket = None
     if has("handoff"):
         halo = torch.full((plan.halo_len,), math.nan, dtype=torch.float64,
                           device=device)
         ticket = torch.zeros(1, dtype=torch.int32, device=device)
     ptr = (lambda x: None if x is None else x.data_ptr())
-    _launch(probe_name(steps, "staged" if staged else "mix"), device,
-            "stb_vpu_mix", steps_bits(steps), int(staged),
-            ptr(a) if has("smem") else None, v.data_ptr(), s.data_ptr(),
-            ptr(w), ptr(xs), ptr(halo), ptr(ticket), n, m, plan.chunk,
-            plan.chunks, plan.blocks if blocks is None else blocks, smem,
-            piece, pieces, SLAB)
+    _LIB.launch("stb_vpu_mix", device, steps_bits(steps), int(staged),
+                ptr(a) if has("smem") else None, v.data_ptr(), s.data_ptr(),
+                ptr(w), ptr(xs), ptr(halo), ptr(ticket), n, m, plan.chunk,
+                plan.chunks, plan.blocks if blocks is None else blocks, smem,
+                piece, pieces, SLAB,
+                key=probe_name(steps, "staged" if staged else "mix"))
     return MixOut(v, s, w, xs)
 
 

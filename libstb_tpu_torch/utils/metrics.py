@@ -29,8 +29,9 @@ count is the number of spans of one name.  The spans, each
 * ``driver.chunk_end`` (``run_gibbs_timed``): a chunk's ``synchronize``
   and running sums;
 * ``ti.sweep`` (``models/pyp``): one TI sweep; inside it ``ti.prepare``,
-  its V rows and block of uniforms, and ``ti.step``, each of its S steps
-  (~20 launches);
+  its V rows and block of uniforms, then on a card ``ti.kernel``, the one
+  launch of all S steps, and in the plain loop (the CPU) ``ti.step``,
+  each of its S steps (~20 launches);
 * ``ct.srel`` (``models/pyp.ct_sweep``, every CT sweep): the (C, J, D,
   tmax) block of Srel the sweep reads; ``ct.scan``: its loop over the
   categories;

@@ -13,6 +13,7 @@ import torch
 from libstb_tpu.core import stirling as jst
 from libstb_tpu.ops import stirling_pallas as sp
 from libstb_tpu_torch.core import stirling as tst
+from libstb_tpu_torch.ops import _nvcc
 from libstb_tpu_torch.ops import stirling_cuda as sc
 
 torch.set_num_threads(1)
@@ -176,12 +177,12 @@ def test_sources_named_and_flags():
     for name, src in sc.SOURCES.items():
         assert src.is_file() and src.parent.name == "csrc"
         assert f"extern \"C\" int stb_{name}_f32" in src.read_text()
-        assert sc._target(name).name.startswith(f"{name}_")
+        assert _nvcc.target(name, src).name.startswith(f"{name}_")
     assert "stirling_pallas.py:_kernel_folded" in (
         sc.SOURCES["fill_table"].read_text())
     assert "stirling_pallas.py:_kernel_cols" in (
         sc.SOURCES["fill_table_cols"].read_text())
-    assert len({sc._target(n) for n in sc.KERNELS}) == 3
+    assert len({_nvcc.target(n, sc.SOURCES[n]) for n in sc.KERNELS}) == 3
 
 
 @pytest.mark.cuda
@@ -212,7 +213,7 @@ def test_kernels_match_ref(cuda_device, dtype, v_rtol, s_atol, a, N, M):
         assert not bool(torch.isnan(v).any() or torch.isnan(s).any())
 
 
-def test_target_hashes_included_headers(tmp_path, monkeypatch):
+def test_target_hashes_included_headers(tmp_path):
     """K1, K2 and K3 include csrc/row_walk.cuh (K3 for its hand-off and
     its divide and log): editing the header renames all three libraries,
     so a stale build is never loaded."""
@@ -220,14 +221,13 @@ def test_target_hashes_included_headers(tmp_path, monkeypatch):
     csrc.mkdir()
     for src in sc.SOURCES["fill_grid"].parent.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
-    monkeypatch.setattr(sc, "SOURCES", {
-        name: csrc / path.name for name, path in sc.SOURCES.items()})
-    before = {name: sc._target(name) for name in sc.KERNELS}
+    sources = {name: csrc / path.name for name, path in sc.SOURCES.items()}
+    before = {name: _nvcc.target(name, sources[name]) for name in sc.KERNELS}
     header = csrc / "row_walk.cuh"
     for name in sc.KERNELS:
-        assert b'#include "row_walk.cuh"' in sc.SOURCES[name].read_bytes()
+        assert b'#include "row_walk.cuh"' in sources[name].read_bytes()
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {name: sc._target(name) for name in sc.KERNELS}
+    after = {name: _nvcc.target(name, sources[name]) for name in sc.KERNELS}
     assert after["fill_grid"] != before["fill_grid"]
     assert after["fill_table"] != before["fill_table"]
     assert after["fill_table_cols"] != before["fill_table_cols"]
@@ -296,7 +296,7 @@ def test_source_bytes_follows_includes_once(tmp_path):
                                     b'  # include "c.cuh"\n')
     (tmp_path / "b.cuh").write_bytes(b'#include "c.cuh"\nB\n')
     (tmp_path / "c.cuh").write_bytes(b'#include "b.cuh"\nC\n')
-    got = sc._source_bytes(tmp_path / "a.cu", set())
+    got = _nvcc.source_bytes(tmp_path / "a.cu", set())
     assert got.count(b"B\n") == 1 and got.count(b"C\n") == 1
     assert got.startswith((tmp_path / "a.cu").read_bytes())
 

@@ -20,6 +20,7 @@ from libstb_tpu.utils import yaps as jyaps
 from libstb_tpu_torch.core import quadrature as tquad
 from libstb_tpu_torch.models import hpyp as thpyp
 from libstb_tpu_torch.models import pyp as tpyp
+from libstb_tpu_torch.ops import _nvcc
 from libstb_tpu_torch.ops import stirling_cuda as sc
 from libstb_tpu_torch.utils import config as tconfig
 from libstb_tpu_torch.utils import yaps as tyaps
@@ -102,6 +103,32 @@ def test_no_jax_or_reference_import(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "libstb_tpu"), (
                 f"{path.name} imports {name}")
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for p in (PKG / "ops").glob("*.py")
+    if p.name not in ("_nvcc.py", "__init__.py")), ids=lambda p: p.name)
+def test_kernel_calls_go_through_nvcc(path):
+    """Only ops/_nvcc.py opens a CUDA library, passes PyTorch's stream,
+    reports a launch's cudaError and checks a kernel's tensor arguments
+    (device, dtype, shape, contiguity); vpu_probe_cuda.alu_blocks' query,
+    not a launch, keeps its own cudaError."""
+    text = path.read_text()
+    assert "ctypes.CDLL" not in text and ".cuda_stream" not in text
+    assert ".is_contiguous(" not in text
+    phrases = ("lies on", "has dtype", "has shape", "must be contiguous",
+               "float32 or float64 only", "CUDA device")
+    for top in ast.parse(text).body:
+        for node in ast.walk(top):
+            if not isinstance(node, ast.Raise):
+                continue
+            msg = " ".join(c.value for c in ast.walk(node)
+                           if isinstance(c, ast.Constant)
+                           and isinstance(c.value, str))
+            assert not any(p in msg for p in phrases), msg
+            if "cudaError" in msg:
+                assert (path.name, top.name) == ("vpu_probe_cuda.py",
+                                                 "alu_blocks"), msg
 
 
 @pytest.mark.parametrize("cli,argv", [
@@ -269,8 +296,8 @@ def test_build_flags_and_source():
     for src in sc.SOURCES.values():
         assert src.is_file() and src.parent.parent == PKG
         assert "stirling_pallas.py:_kernel" in src.read_text()
-    assert "arch=compute_90a,code=sm_90a" in sc.NVCC_FLAGS
-    assert not any("fast_math" in f for f in sc.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in _nvcc.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _nvcc.NVCC_FLAGS)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "libstb_tpu_torch/_build/" in ignored
-    assert os.path.basename(sc._BUILD_DIR) == "_build"
+    assert os.path.basename(_nvcc.BUILD_DIR) == "_build"

@@ -25,7 +25,7 @@ import torch
 
 from benchmark.reference import hpyp_ref
 from libstb_tpu_torch.core import agrid, rng
-from libstb_tpu_torch.ops import slice_cuda
+from libstb_tpu_torch.ops import _nvcc, slice_cuda
 from libstb_tpu_torch.samplers import hyper
 from libstb_tpu_torch.samplers import slice as slicemod
 
@@ -188,7 +188,7 @@ def test_replay_of_the_ref_draws(monkeypatch, density, groups):
 def test_cpu_moves_take_slice_sample(monkeypatch, move):
     """On CPU chains sample_a and sample_b run slice_sample once and build
     and launch nothing."""
-    monkeypatch.setattr(slice_cuda, "load", lambda: pytest.fail("built"))
+    monkeypatch.setattr(_nvcc, "build_all", lambda _: pytest.fail("built"))
     calls, real = [], slicemod.slice_sample
 
     def spy(*args, **kw):

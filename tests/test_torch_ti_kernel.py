@@ -18,7 +18,7 @@ import torch
 
 from libstb_tpu_torch.core import agrid, stirling
 from libstb_tpu_torch.models import pyp
-from libstb_tpu_torch.ops import ti_cuda
+from libstb_tpu_torch.ops import _nvcc, ti_cuda
 
 CHAINS = 293          # prime: a multiple of no block's chains
 SWEEPS = 3
@@ -156,7 +156,7 @@ def test_kernel_rejects_on_the_card(cuda_device):
 def test_cpu_takes_the_plain_loop(monkeypatch):
     """_ti_run on the CPU is _ti_run_ref: the same state, and the kernel
     is neither built nor launched."""
-    monkeypatch.setattr(ti_cuda, "load", lambda: pytest.fail("built"))
+    monkeypatch.setattr(_nvcc, "build_all", lambda _: pytest.fail("built"))
     data = _data()
     tab = _table("grid", data, torch.float64, "cpu")
     plan = pyp.ti_plan(data, _sched(data, "group"), "cpu")

@@ -1060,8 +1060,8 @@ def test_builder_keeps_k1_k3_and_builds_the_probes(tmp_path, monkeypatch):
     of the header renames all four libraries."""
     assert sc.KERNELS == ("fill_grid", "fill_table", "fill_table_cols")
     for name in sc.KERNELS:
-        assert sc._target(name) == _nvcc.target(name, sc.SOURCES[name])
-        assert sc._target(name).parent == _nvcc.BUILD_DIR == sc._BUILD_DIR
+        assert _nvcc.LIBRARIES[name].source == sc.SOURCES[name]
+        assert _nvcc.target(name, sc.SOURCES[name]).parent == _nvcc.BUILD_DIR
     src = vp.SOURCES["vpu_probe"]
     assert src.parent == sc.SOURCES["fill_grid"].parent
     assert b'#include "row_walk.cuh"' in src.read_bytes()

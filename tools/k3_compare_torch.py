@@ -44,6 +44,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from libstb_tpu_torch.ops import _nvcc  # noqa: E402
 from libstb_tpu_torch.ops import stirling_cuda as sc  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -58,12 +59,11 @@ def build(path: str):
     """The library built from ``path``; the fills it offers, by name."""
     src = open(path, "rb").read()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    out = sc._BUILD_DIR / f"compare_{os.path.basename(path)}_{tag}.so"
+    out = _nvcc.BUILD_DIR / f"compare_{os.path.basename(path)}_{tag}.so"
     if not out.exists():
-        sc._BUILD_DIR.mkdir(exist_ok=True)
-        subprocess.run([sc._nvcc.nvcc(), *sc.NVCC_FLAGS, "-I",
-                        str(sc.SOURCES["fill_table_cols"].parent), "-o",
-                        str(out), path], check=True)
+        _nvcc.BUILD_DIR.mkdir(exist_ok=True)
+        subprocess.run([_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-I",
+                        str(_nvcc.CSRC), "-o", str(out), path], check=True)
     lib = ctypes.CDLL(str(out))
     name = os.path.basename(path)
     if b"cudaLaunchCooperativeKernel" in src:
@@ -75,10 +75,6 @@ def build(path: str):
     return fills
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _coop(fn):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
@@ -88,10 +84,8 @@ def _coop(fn):
         s = torch.empty_like(v)
         scratch = torch.empty(4 * n + 2048, dtype=torch.float64,
                               device=a.device)
-        err = fn(a.data_ptr(), v.data_ptr(), s.data_ptr(),
-                 scratch.data_ptr(), n, m, 1, _stream())
-        if err:
-            raise RuntimeError(f"launch failed: cudaError {err}")
+        _nvcc.run(fn.__name__, fn, a.device, a.data_ptr(), v.data_ptr(),
+                  s.data_ptr(), scratch.data_ptr(), n, m, 1)
     return fill
 
 
@@ -112,13 +106,11 @@ def _chunked(fn, gmem):
         if gmem:
             state = torch.empty(3 * p.chunks * p.chunk, dtype=torch.float64,
                                 device=a.device)
-            err = fn(*ptrs, state.data_ptr(), n, m, 1, p.chunk, p.chunks,
-                     p.blocks, _stream())
+            _nvcc.run(fn.__name__, fn, a.device, *ptrs, state.data_ptr(), n,
+                      m, 1, p.chunk, p.chunks, p.blocks)
         else:
-            err = fn(*ptrs, n, m, 1, p.chunk, p.chunks, p.blocks, p.smem,
-                     _stream())
-        if err:
-            raise RuntimeError(f"launch failed: cudaError {err}")
+            _nvcc.run(fn.__name__, fn, a.device, *ptrs, n, m, 1, p.chunk,
+                      p.chunks, p.blocks, p.smem)
     return fill
 
 

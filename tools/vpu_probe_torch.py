@@ -786,7 +786,8 @@ def sass_check(device):
     if device.type != "cuda":
         return None
     dump = Path(_nvcc.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(dump), "-sass", str(vp.build()["vpu_probe"])],
+    lib = _nvcc.build_all(vp.SOURCES)["vpu_probe"]
+    text = subprocess.run([str(dump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     rows, short = compiled_work(text)
     lrows, lshort = ladder_work(text)
