@@ -25,7 +25,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      chains x 125 iterations (the Quick-start's 500 cut to a quarter,
      PERF.md section 4) on crp_generate(0, 4, 20, 100) data, with
      the kernels' launch counts over that run (the TI sweep's one a
-     sweep, the slice moves' at least one a move);
+     sweep, all on the grid route, the slice moves' at least one a move);
   4. the acceptance gate: run_gibbs (f32, this card) against the JAX
      package's CPU-f64 posterior moments in tests/data/torch_gate_ref.json
      for seeds 7, 11, 23, within tools/oracle_compare.compare()'s bands,
@@ -68,13 +68,15 @@ Phases, each timed; any failure raises and the exit code is non-zero:
      on a discount grid that holds the table's discount as a node, under
      the same draws: equal histograms and equal a in all but at most 2
      of 64 chains; (c) ti_sweep_blocked on a StirlingTable (K2) and on
-     such a grid: E[T_j] within 3 combined SE + 0.05; then the TI
-     sweep's kernel (csrc/ti_sweep.cu) against its plain loop at the
-     Quick-start's shape (crp_generate(0, 4, 20, 100), 16384 chains,
-     group schedule, a make_grid(512, 128, g=64) K1 grid in f32): t and
-     T bitwise equal over 3 sweeps, the kernel's time (CUDA events)
-     beside its byte bound, the whole sweep's and the plain loop's (host
-     clock), and the kernel's launches, one a sweep; (d)
+     such a grid: E[T_j] within 3 combined SE + 0.05, the table's
+     sweeps on the kernel's rows route and the grid's on its grid route;
+     then the TI sweep's kernel (csrc/ti_sweep.cu) against its plain
+     loop at the Quick-start's shape (crp_generate(0, 4, 20, 100), 16384
+     chains, group schedule, a make_grid(512, 128, g=64) K1 grid in f32):
+     the grid route, t and T bitwise equal over 3 sweeps, the kernel's
+     time (CUDA events) on both routes beside its byte bound, the whole
+     sweep's (ti.prepare + kernel) on both routes and the plain loop's
+     (host clock), and the kernel's launches by route, one a sweep; (d)
      special.digamma, trigamma and digamma_inv at 10^6 points on [0.01,
      10^4] against torch.special, and data_curve_sparse against
      data_curve at 2^18 + 5 pairs; (e) the slice moves' kernel
@@ -912,14 +914,18 @@ def config_totals(ns, ts):
 
 def phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card):
     """The TI sweep's kernel against its plain loop at the Quick-start's
-    shape: bitwise over 3 sweeps, then the times."""
+    shape: the grid route, bitwise over 3 sweeps, then the times of both
+    routes (the rows route is the one a grid took before the grid route:
+    ti.prepare builds the V rows and the kernel gathers from them)."""
     C = 16384
     grid = agrid.make_grid(512, 128, g=64, device=dev)
     plan = pyp.ti_plan(data, pyp.ti_schedule(data, "group"), dev)
     t, T = pyp.init_state(data, C, dev)
     a = torch.linspace(0.15, 0.85, C, device=dev)
     b = torch.full((C,), 10.0, device=dev)
-    before = ti_cuda.LAUNCHES["ti_sweep"]
+    check(pyp.ti_route(grid, plan, a.dtype) == "grid",
+          "the Quick-start's grid does not take the grid route")
+    before = dict(ti_cuda.LAUNCHES)
     for k in range(3):
         ref = pyp._ti_run_ref(torch.Generator(device=dev).manual_seed(20 + k),
                               t, T, a, b, grid, plan, True, False)
@@ -931,28 +937,43 @@ def phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card):
         t, T = got
     gen = torch.Generator(device=dev).manual_seed(30)
     live, nf, H, vrows, u = pyp._ti_prepare(gen, t, a, grid, plan, True)
-    k_ms = cuda_ms(lambda: ti_cuda.ti_sweep(t, T, a, b, vrows, u, plan, live,
-                                            nf, H, False), 21)
+    k_ms = cuda_ms(lambda: ti_cuda.ti_sweep(t, T, a, b, None, u, plan, live,
+                                            nf, H, False, grid=grid), 21)
+    rows_k_ms = cuda_ms(lambda: ti_cuda.ti_sweep(t, T, a, b, vrows, u, plan,
+                                                 live, nf, H, False), 21)
     sweep_ms = host_ms(lambda: pyp._ti_run(gen, t, T, a, b, grid, plan, True,
                                            False), 20)
+
+    def rows_sweep():
+        p = pyp._ti_prepare(gen, t, a, grid, plan, True)
+        return ti_cuda.ti_sweep(t, T, a, b, p[3], p[4], plan, *p[:3], False)
+
+    rows_ms = host_ms(rows_sweep, 20)
     ref_ms = host_ms(lambda: pyp._ti_run_ref(gen, t, T, a, b, grid, plan,
                                              True, False), 5)
-    sweeps = ti_cuda.LAUNCHES["ti_sweep"] - before
-    check(sweeps == 3 + 21 + 20,
-          f"44 kernel sweeps launched the TI kernel {sweeps} times")
+    counts = {k: n - before[k] for k, n in ti_cuda.LAUNCHES.items()}
+    check(counts == {"ti_sweep": 21 + 20, "ti_sweep_grid": 3 + 21 + 20,
+                     "ti_grid_v": 0},
+          f"44 grid-route and 41 rows-route sweeps launched {counts}")
     S, W = plan.flat.shape
-    # the uniforms once, t and T read and written once, a 32-byte sector
-    # of V a lane-step
-    nbytes = (u.numel() * u.element_size() + 2 * 4 * (t.numel() + T.numel())
-              + 32 * S * C * W)
-    bound_ms = nbytes / HBM_BPS * 1e3
+    # the uniforms once and t and T read and written once; the rows route
+    # adds a 32-byte sector of V a lane-step, the grid route's taps come
+    # from L2
+    nbytes = u.numel() * u.element_size() + 2 * 4 * (t.numel() + T.numel())
+    rows_bytes = nbytes + 32 * S * C * W
+    bound_ms, rows_bound_ms = (x / HBM_BPS * 1e3 for x in (nbytes,
+                                                           rows_bytes))
     geo = ti_cuda.sweep_plan(C, W, t[0].numel(), T.shape[1])
-    print(f"   TI kernel at (S={S}, C={C}, W={W}) f32: {k_ms:.4f} ms (CUDA "
-          f"events, median of 21) = {100 * bound_ms / k_ms:.2f}% of its "
-          f"byte bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); the whole "
-          f"sweep (ti.prepare + kernel) {sweep_ms:.4f} ms, the plain loop "
-          f"{ref_ms:.4f} ms (host clock, mean of 20 / 5); geometry {geo}; "
-          f"launches {sweeps} for 44 sweeps [{card}]")
+    print(f"   TI kernel at (S={S}, C={C}, W={W}) f32, CUDA events, median "
+          f"of 21: grid route {k_ms:.4f} ms = {100 * bound_ms / k_ms:.2f}% "
+          f"of its byte bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); "
+          f"rows route {rows_k_ms:.4f} ms = "
+          f"{100 * rows_bound_ms / rows_k_ms:.2f}% of {rows_bound_ms:.4f} ms"
+          f" ({rows_bytes / 1e6:.1f} MB). The whole sweep (ti.prepare + "
+          f"kernel, host clock, mean of 20): grid route {sweep_ms:.4f} ms, "
+          f"rows route {rows_ms:.4f} ms (PERF.md section 6 row 10 has both "
+          f"as measured on an H100); the plain loop {ref_ms:.4f} ms (mean "
+          f"of 5); geometry {geo}; launches by route {counts} [{card}]")
     return k_ms
 
 
@@ -1202,9 +1223,10 @@ def phase10_hyper(dev, sc, agrid, stirling, pyp, card):
           f"{np.round(3 * se + 0.05, 3).tolist()}")
     check(bool(np.all(diff <= 3 * se + 0.05)),
           "the sweep on the single table and on the grid disagree on E[T_j]")
-    check(ti_cuda.LAUNCHES["ti_sweep"] == 2 * sweeps,
-          f"{2 * sweeps} sweeps launched the TI kernel "
-          f"{ti_cuda.LAUNCHES['ti_sweep']} times")
+    routes = tuple(ti_cuda.LAUNCHES[k] for k in ("ti_sweep", "ti_sweep_grid"))
+    check(routes == (sweeps, sweeps),
+          f"{sweeps} sweeps on the table and {sweeps} on the grid launched "
+          f"the TI kernel {routes} times (rows route, grid route)")
     phase10c_ti_kernel(dev, agrid, pyp, ti_cuda, data, card)
     done(t0)
 
@@ -2986,9 +3008,11 @@ def main():
     paths["3"] = {**sc.LAUNCHES, **ti_cuda.LAUNCHES, **slice_cuda.LAUNCHES}
     launches = paths["3"]["fill_grid"]
     check(launches >= 1, "the main path did not launch K1")
-    check(paths["3"]["ti_sweep"] == MAIN_ITERS,
-          f"{MAIN_ITERS} TI sweeps launched the TI kernel "
-          f"{paths['3']['ti_sweep']} times")
+    check((paths["3"]["ti_sweep_grid"], paths["3"]["ti_sweep"])
+          == (MAIN_ITERS, 0),
+          f"{MAIN_ITERS} TI sweeps launched the TI kernel's grid route "
+          f"{paths['3']['ti_sweep_grid']} times and its rows route "
+          f"{paths['3']['ti_sweep']}")
     moves = -(-MAIN_ITERS // cfg.bcycle) - (-MAIN_ITERS // cfg.acycle)
     check(paths["3"]["slice_move"] >= moves,
           f"{moves} slice moves launched the slice kernel "
@@ -3007,7 +3031,7 @@ def main():
     print(f"   E[T_j] {out['Tave_mean'].tolist()} E[a] "
           f"{out['aave_mean'].item():.6g} E[b] {out['bave_mean'].item():.6g}")
     print(f"   run_gibbs wall {run_s:.3f} s; K1 launches {launches}, TI "
-          f"sweep launches {paths['3']['ti_sweep']}, slice launches "
+          f"sweep launches {paths['3']['ti_sweep_grid']}, slice launches "
           f"{paths['3']['slice_move']} for {moves} moves [{card}]")
     done(t0)
 
@@ -3050,11 +3074,11 @@ def main():
              "K3_65536": k3["ms"]}
     paths["19"], probes = phase19_probes(dev, vp, card, fills)
     # every kernel of a path was launched in that path's own run
-    for path, names in (("3", ["fill_grid", "ti_sweep"]),
+    for path, names in (("3", ["fill_grid", "ti_sweep_grid"]),
                         ("7", ["fill_table", "fill_table_cols"]),
                         ("9", ["fill_grid"]),
                         ("10", ["fill_table", "fill_table_cols",
-                                "ti_sweep"]),
+                                "ti_sweep", "ti_sweep_grid"]),
                         ("11", ["fill_grid"]),
                         ("12", ["fill_table"]),
                         ("13", ["fill_grid"]),
@@ -3072,8 +3096,9 @@ def main():
             check(paths[path][name] >= 1,
                   f"phase {path} did not launch {name}")
 
-    def path_launches(name):
-        by_path = {p: c[name] for p, c in paths.items() if name in c}
+    def path_launches(*names):
+        by_path = {p: sum(c[n] for n in names) for p, c in paths.items()
+                   if names[0] in c}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -3108,7 +3133,10 @@ def main():
         "route": "cuda",
         "source": "libstb_tpu_torch/csrc/ti_sweep.cu",
         "replaces": None,
-        **path_launches("ti_sweep"),
+        **path_launches("ti_sweep", "ti_sweep_grid"),
+        "launches_by_route": {
+            "rows": path_launches("ti_sweep")["launches"],
+            "grid": path_launches("ti_sweep_grid")["launches"]},
     }, {
         "name": "slice_move",
         "route": "cuda",

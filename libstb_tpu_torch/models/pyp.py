@@ -8,7 +8,9 @@ batched over chains:
 
 * TI: ``ti_sweep`` / ``ti_sweep_blocked`` (item order or a schedule; on
   a CUDA device all of a sweep's steps are one launch of
-  ops/ti_cuda.py's kernel, on the CPU the plain loop ``_ti_run_ref``)
+  ops/ti_cuda.py's kernel, which on a grid that holds the counts reads V
+  from the grid itself (``ti_route``), on the CPU the plain loop
+  ``_ti_run_ref``)
   and the pair-major ``ti_sweep_pairs`` family (check.c scale);
 * CT / CTW: ``ct_sweep`` over the full candidate range (with a window,
   the check.c '-c' bound, or per-chain counts and base for HPYP) and
@@ -19,7 +21,8 @@ batched over chains:
 The sweeps read V(n, t+1; a) and Srel(n, t; a) from a discount grid or
 from one discount's ``StirlingTable`` (``_vq`` / ``_srelq``).  The TI
 sweeps evaluate the V rows of the occupied pairs once and gather from
-them; the pair-major sweeps on a ``StirlingTable`` gather from its rows
+them (the kernel's grid route interpolates from the grid instead); the
+pair-major sweeps on a ``StirlingTable`` gather from its rows
 (``V_rows`` / ``Srel_rows``) where the JAX package selects by a dense
 compare-reduce, which only suits the TPU.  Each sweep draws its random
 numbers as one block (one per stage for the staged sweeps), in the order
@@ -42,11 +45,11 @@ _warned_hsa_pairs = False
 
 __all__ = ["PYPData", "TIPlan", "base_distribution", "crp_generate",
            "from_counts", "init_state", "item_schedule", "ti_plan",
-           "ti_schedule", "ti_sweep", "ti_sweep_blocked", "ti_pair_layout",
-           "ti_pair_stages", "ti_sweep_pairs", "ti_sweep_pairs_state",
-           "ti_sweep_pairs_staged", "ti_pair_m_sel", "ct_sweep",
-           "ctw_sweep", "ctw_m_sel", "ctw_sweep_rel", "init_hsa",
-           "hsa_sweep", "init_hsa_pairs", "hsa_sweep_pairs",
+           "ti_route", "ti_schedule", "ti_sweep", "ti_sweep_blocked",
+           "ti_pair_layout", "ti_pair_stages", "ti_sweep_pairs",
+           "ti_sweep_pairs_state", "ti_sweep_pairs_staged", "ti_pair_m_sel",
+           "ct_sweep", "ctw_sweep", "ctw_m_sel", "ctw_sweep_rel",
+           "init_hsa", "hsa_sweep", "init_hsa_pairs", "hsa_sweep_pairs",
            "hsa_sweep_pairs_staged"]
 
 
@@ -257,22 +260,40 @@ def ti_plan(data: PYPData, sched: np.ndarray, device) -> TIPlan:
                   pair_n=dev(data.n[jv, iv].astype(np.int64)), mq=mq)
 
 
-def _ti_prepare(gen, t, a, tab: Table, plan: TIPlan, skip_first: bool):
+def ti_route(tab: Table, plan: TIPlan, dtype) -> str:
+    """Where the sweep's kernel reads V(n, t+1): "grid" where it can
+    interpolate it from the grid's own vtab bitwise as AGridTable.V does,
+    i.e. a grid whose V and S1 tables are in the sweep's ``dtype`` and hold
+    every V the plan reads (n up to its largest count, mq - 1, and m up to
+    mq), so that V's clamps and asymptote never apply; "rows", the V rows
+    ti.prepare builds, for anything else (a StirlingTable, a grid too
+    small for the counts or of another dtype)."""
+    if (isinstance(tab, agrid.AGridTable) and tab.vtab is not None
+            and tab.vtab.dtype == dtype and tab.s1_hi.dtype == dtype
+            and tab.n_max >= plan.mq - 1 and tab.m_max >= plan.mq):
+        return "grid"
+    return "rows"
+
+
+def _ti_prepare(gen, t, a, tab: Table, plan: TIPlan, skip_first: bool,
+                rows: bool = True):
     """What every step of a sweep reads besides the state: the live slots,
-    n and H in the sweep's dtype, the V rows of the occupied pairs and the
-    sweep's one block of uniforms."""
+    n and H in the sweep's dtype, the V rows of the occupied pairs (None
+    unless ``rows``) and the sweep's one block of uniforms."""
     dt = a.dtype
     C = t.shape[0]
     S, W = plan.flat.shape
     live = plan.free & ~plan.first if skip_first else plan.free
     nf = plan.cnt.to(dt)
     H = plan.H.to(dt)
-    mvec = torch.arange(1, plan.mq + 1, device=t.device)
-    # (C, P * mq) from a grid; one (1, P * mq) block from a single table,
-    # which every chain reads through an expanded view
-    vrows = _vq(tab, plan.pair_n[None, :, None], mvec[None, None, :],
-                a[:, None, None]).to(dt)
-    vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
+    vrows = None
+    if rows:
+        mvec = torch.arange(1, plan.mq + 1, device=t.device)
+        # (C, P * mq) from a grid; one (1, P * mq) block from a single
+        # table, which every chain reads through an expanded view
+        vrows = _vq(tab, plan.pair_n[None, :, None], mvec[None, None, :],
+                    a[:, None, None]).to(dt)
+        vrows = vrows.reshape(vrows.shape[0], -1).expand(C, -1)
     u = rng.uniform(gen, (S, 2, C, W), dt, t.device)
     return live, nf, H, vrows, u
 
@@ -282,17 +303,19 @@ def _ti_run(gen, t, T, a, b, tab: Table, plan: TIPlan,
     """The TI conditional updates of ``plan``'s steps in order: the plain
     loop (``_ti_run_ref``) on the CPU, one launch of the sweep's kernel
     (ops/ti_cuda.py) on a CUDA device, which it equals bitwise for the
-    same draws."""
+    same draws.  On the grid route (``ti_route``) ti.prepare builds no V
+    rows: the kernel reads the grid."""
     if t.device.type == "cpu":
         return _ti_run_ref(gen, t, T, a, b, tab, plan, skip_first,
                            legacy_odds)
+    grid = ti_route(tab, plan, a.dtype) == "grid"
     with metrics.span("ti.sweep"):
         with metrics.span("ti.prepare"):
             live, nf, H, vrows, u = _ti_prepare(gen, t, a, tab, plan,
-                                                skip_first)
+                                                skip_first, rows=not grid)
         with metrics.span("ti.kernel"):
             return ti_cuda.ti_sweep(t, T, a, b, vrows, u, plan, live, nf, H,
-                                    legacy_odds)
+                                    legacy_odds, grid=tab if grid else None)
 
 
 def _ti_run_ref(gen, t, T, a, b, tab: Table, plan: TIPlan,

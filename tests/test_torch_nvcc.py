@@ -36,10 +36,12 @@ def test_every_source_is_registered_once():
     assert _nvcc.LIBRARIES["ti_sweep"].launches is ti_cuda.LAUNCHES
     assert _nvcc.LIBRARIES["slice_move"].launches is slice_cuda.LAUNCHES
     assert _nvcc.LIBRARIES["vpu_probe"].launches is vp.LAUNCHES
-    for name in ("fill_grid", "fill_table", "fill_table_cols", "ti_sweep",
-                 "slice_move"):
+    for name in ("fill_grid", "fill_table", "fill_table_cols", "slice_move"):
         assert set(_nvcc.LIBRARIES[name].symbols) == {
             f"stb_{name}_f32", f"stb_{name}_f64"}
+    assert set(_nvcc.LIBRARIES["ti_sweep"].symbols) == {
+        f"stb_{name}_{suffix}" for name in ("ti_sweep", "ti_grid_v")
+        for suffix in ("f32", "f64")}
     probes = _nvcc.LIBRARIES["vpu_probe"].symbols
     assert len(probes) == 7 and all(s.startswith("stb_vpu_") for s in probes)
     with pytest.raises(ValueError, match="registered twice"):
