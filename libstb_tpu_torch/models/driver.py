@@ -3,7 +3,12 @@ test/check.c:715-1054, batched over chains, in PyTorch.
 
 Port of libstb_tpu/models/driver.py: ``run_gibbs`` with the TI, CT, CTW
 and HSA samplers and either 1-D kernel (slice or ARS) for the (a, b)
-moves, and ``run_gibbs_timed``, check.c's wall-clock-bounded mode.  The
+moves, and ``run_gibbs_timed``, check.c's wall-clock-bounded mode.
+CTW sweeps by default as the JAX driver does (``ct_sweep`` with a
+window: the full 1..tmax block, masked); ``ctw_rel=True`` routes it to
+``pyp.ctw_sweep_rel`` (2w + 1 candidates a count, the window shifted
+into [1, n] as check.c:915-918 does), the route for check.c-sized
+counts.  The
 JAX package compiles a run into one program (a lax.scan over
 iterations); here the iterations are a Python loop that enqueues each
 step's kernels on the device.  On a card the host waits on the device
@@ -67,13 +72,18 @@ class _Plan(NamedTuple):
     ti: Optional[pyp.TIPlan]        # the TI item schedule
     ns_flat: torch.Tensor           # (J * D,) counts for sample_a
     N_b: torch.Tensor               # group totals for sample_b
+    ctw_rel: bool = False           # CTW by ctw_sweep_rel
 
 
-def _prepare(data: pyp.PYPData, grid: agrid.AGridTable, cfg: GibbsConfig):
+def _prepare(data: pyp.PYPData, grid: agrid.AGridTable, cfg: GibbsConfig,
+             ctw_rel: bool = False):
     """The grid grown to cover every query the run can make, and the
     run's plan."""
     if cfg.sampler.upper() not in SAMPLERS:
         raise ValueError(f"unknown sampler {cfg.sampler}")
+    if ctw_rel and cfg.sampler.upper() != "CTW":
+        raise ValueError(f"ctw_rel routes the CTW sampler, not "
+                         f"{cfg.sampler}")
     n_req, m_req = agrid.required_dims(data.n)
     grid = agrid.ensure_grid(grid, n_req, m_req,
                              quit_on_bound=cfg.quit_on_bound)
@@ -87,7 +97,8 @@ def _prepare(data: pyp.PYPData, grid: agrid.AGridTable, cfg: GibbsConfig):
     return grid, _Plan(
         sampler=sampler, tmax=int(data.n.max()) + 1, ti=ti,
         ns_flat=torch.as_tensor(data.n.reshape(-1), device=dev),
-        N_b=torch.as_tensor(data.N[: cfg.b_groups], dtype=dt, device=dev))
+        N_b=torch.as_tensor(data.N[: cfg.b_groups], dtype=dt, device=dev),
+        ctw_rel=ctw_rel)
 
 
 def _init(data: pyp.PYPData, grid: agrid.AGridTable, chains: int,
@@ -116,6 +127,11 @@ def _sweep(gen, data, grid, state, cfg: GibbsConfig, plan: _Plan):
     if plan.sampler == "HSA":
         hist, T = pyp.hsa_sweep(gen, state["hist"], T, a, b, data)
         return hist.sum(-1, dtype=torch.int32), T, hist
+    if plan.ctw_rel:
+        # grid point queries at each chain's a (m_sel 0)
+        t, T = pyp.ctw_sweep_rel(gen, t, T, a, b, grid, data,
+                                 window=cfg.window)
+        return t, T, None
     window = cfg.window if plan.sampler == "CTW" else None
     t, T = pyp.ct_sweep(gen, t, T, a, b, grid, data, plan.tmax,
                         window=window, maxrel=cfg.maxrel or None)
@@ -175,7 +191,8 @@ def _run_chunk(gen, data: pyp.PYPData, grid: agrid.AGridTable, state: dict,
 
 
 def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
-              chains: int, a0: float, b0: float, cfg: GibbsConfig):
+              chains: int, a0: float, b0: float, cfg: GibbsConfig,
+              ctw_rel: bool = False):
     """Run the full Gibbs chain ensemble on the grid's device; returns
     posterior-mean stats (demo.c:493-519): time-averaged t, T (post
     burn-in) per chain, a/b averages, and their ensemble means in the
@@ -187,9 +204,10 @@ def run_gibbs(gen, data: pyp.PYPData, grid: agrid.AGridTable,
 
     The grid is grown up front (ensure_grid) to cover every query the run
     can make, as the JAX driver does.  ``gen``: a torch.Generator on the
-    grid's device.
+    grid's device.  ``ctw_rel`` (``cfg.sampler`` "CTW" only): sweep with
+    ``pyp.ctw_sweep_rel`` in place of the masked ``ct_sweep``.
     """
-    grid, plan = _prepare(data, grid, cfg)
+    grid, plan = _prepare(data, grid, cfg, ctw_rel)
     return _run_chunk(gen, data, grid, _init(data, grid, chains, a0, b0,
                                              plan),
                       cfg, plan, cfg.resolved_burnin())
@@ -204,7 +222,7 @@ def run_gibbs_timed(gen, data: pyp.PYPData, grid: agrid.AGridTable,
                     chains: int, a0: float, b0: float, cfg: GibbsConfig,
                     iter_ms: Optional[float] = None,
                     burnin_ms: Optional[float] = None,
-                    chunk: int = 16, progress=None):
+                    chunk: int = 16, progress=None, ctw_rel: bool = False):
     """Wall-clock-bounded Gibbs run (check.c's '-C Nms' / '-B Nms' modes,
     check.c:380-393, 1028-1054; libstb_tpu/models/driver.run_gibbs_timed).
 
@@ -219,9 +237,9 @@ def run_gibbs_timed(gen, data: pyp.PYPData, grid: agrid.AGridTable,
 
     ``progress``: optional callable, called after every post-burn-in chunk
     with (iters_done, elapsed_ms, running means dict) -- check.c's '-p
-    repcyc' report (check.c:996-1010).
+    repcyc' report (check.c:996-1010).  ``ctw_rel``: as ``run_gibbs``.
     """
-    grid, plan = _prepare(data, grid, cfg)
+    grid, plan = _prepare(data, grid, cfg, ctw_rel)
     dev = grid.device
     cycles = [c for c in (cfg.bcycle, cfg.acycle) if c > 0]
     if cycles:

@@ -30,6 +30,7 @@ the JAX sweep's keys would, so ``rng.Replay`` can hand the JAX draws over.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Union
 
@@ -43,12 +44,16 @@ from ..utils import metrics, yaps
 _warned_cat_mode = False
 _warned_hsa_pairs = False
 
+# what ctw_sweep_rel has done, counted on the host from its shapes (it
+# never reads the device): sweeps, and candidates = rows x K x categories
+CTW_COUNTS = {"sweeps": 0, "candidates": 0}
+
 __all__ = ["PYPData", "TIPlan", "base_distribution", "crp_generate",
            "from_counts", "init_state", "item_schedule", "ti_plan",
            "ti_route", "ti_schedule", "ti_sweep", "ti_sweep_blocked",
            "ti_pair_layout", "ti_pair_stages", "ti_sweep_pairs",
            "ti_sweep_pairs_state", "ti_sweep_pairs_staged", "ti_pair_m_sel",
-           "ct_sweep", "ctw_sweep", "ctw_m_sel", "ctw_sweep_rel",
+           "ct_sweep", "ctw_sweep", "ctw_m_sel", "ctw_sweep_rel", "CTW_COUNTS",
            "init_hsa", "hsa_sweep", "init_hsa_pairs", "hsa_sweep_pairs",
            "hsa_sweep_pairs_staged"]
 
@@ -743,11 +748,67 @@ def _window_product(base, tts, log_ha):
     sum_{k=lo}^{tt-1} log(base + k).  The JAX sweep takes (tt - 1) log(H
     a) + lgamma(base + tt) - lgamma(base + 1), the same up to that
     constant, whose two large terms cost ~1e-4 of absolute error in f32
-    at check.c's bases."""
+    at check.c's bases.
+
+    The running sum is taken over the leading axis of the (K - 1, R)
+    terms: PyTorch's scan along a short innermost axis took ~5 ms on the
+    card for check.c's 819,200 rows of 20, as long as the rest of a
+    category, where one along the outer axis reads the terms once."""
     dt = base.dtype
-    rel = torch.cumsum(torch.log(base[:, None] + tts[:, :-1].to(dt)), dim=-1)
+    terms = torch.log(base[None, :] + tts[:, :-1].T.to(dt)).contiguous()
+    rel = torch.cumsum(terms, dim=0).T
     return ((tts - tts[:, :1]).to(dt) * log_ha[:, None]
             + torch.cat([torch.zeros_like(rel[:, :1]), rel], dim=-1))
+
+
+def _ctw_window(ti, ni, window: int):
+    """(R, K) the candidates of each row: t_i + [-w, w], K = 2w + 1,
+    shifted to stay inside [1, n_i] (check.c:915-918); a row with n_i < K
+    takes 1..K, the candidates past n_i masked by ``_ctw_weights``."""
+    K = 2 * window + 1
+    lo = torch.minimum(torch.clamp(ti - window, min=1),
+                       torch.clamp(ni - K + 1, min=1))
+    return lo[:, None] + torch.arange(K, device=ti.device)[None, :]
+
+
+def _ctw_in_table(tab: Table, data: PYPData) -> Table:
+    """A grid that holds every count of the data queried without its
+    asymptote: the candidates 1 <= t <= n_i all lie in the grid, and
+    those past n_i are masked, so no value a sweep reads changes, and the
+    ~25 operations a candidate of the asymptote (Hutter's and Hwang's
+    forms, both where the grid holds a = 0) are not evaluated."""
+    maxc = int(np.asarray(data.n).max()) if data.n.size else 0
+    if (isinstance(tab, agrid.AGridTable) and tab.use_asympt
+            and maxc <= min(tab.n_max, tab.m_max)):
+        return dataclasses.replace(tab, use_asympt=False)
+    return tab
+
+
+def _ctw_srel(tab: Table, ni, tts, a_f):
+    """(R, K) Srel(n_i, t) at the candidates ``tts`` by point queries, at
+    each row's discount ``a_f`` on a grid."""
+    return _srelq(tab, ni[:, None], tts, a_f[:, None])
+
+
+def _ctw_weights(srel, ni, ti, Tj, a_f, b_f, hlog, tts):
+    """(R, K) the windowed CT log weights of the candidates ``tts``
+    (check.c:905-943): Srel(n_i, t) + log prod_{k=1}^{t-1} H_i (b + (T_j -
+    t_i + k) a), the product relative to its value at the window's first
+    candidate (a constant of the row, which the Gumbel-max ignores);
+    candidates outside [1, n_i] are -inf.  ``srel``: (R, K) Srel at
+    ``tts``; ``hlog``: log H_i."""
+    dt = a_f.dtype
+    safe_a = torch.clamp(a_f, min=1e-12)
+    # log prod_{k=1}^{tt-1} H (b + (T - ti + k) a): base = (b + (T - ti)
+    # a) / a; a == 0: (tt - lo) log(H b), both relative to tt = lo
+    base = (b_f + (Tj - ti).to(dt) * a_f) / safe_a
+    cum = _window_product(base, tts, hlog + torch.log(safe_a))
+    cum0 = (tts - tts[:, :1]).to(dt) * (
+        hlog + torch.log(torch.clamp(b_f, min=1e-30)))[:, None]
+    cum = torch.where(a_f[:, None] > 0, cum, cum0)
+    lw = cum + srel
+    ok = (tts >= 1) & (tts <= ni[:, None])
+    return torch.where(ok, lw, -torch.inf)
 
 
 def ctw_sweep_rel(gen, t, T, a, b, tab: Table, data: PYPData,
@@ -760,55 +821,53 @@ def ctw_sweep_rel(gen, t, T, a, b, tab: Table, data: PYPData,
     ulps.
 
     ``m_sel`` > 0 (from ``ctw_m_sel``): Srel from the (group, category)
-    rows of a ``StirlingTable`` (``Srel_rows``, once a sweep) by gather.
-    Draws one (D, C*J, 2w+1) block of Gumbels."""
-    dt, dev = a.dtype, t.device
-    n = torch.as_tensor(data.n, device=dev)
-    H = torch.as_tensor(data.H, dtype=dt, device=dev)
-    J, D = data.n.shape
-    C = t.shape[0]
-    a_f = a[:, None].expand(C, J).reshape(-1)
-    b_f = b[:, None].expand(C, J).reshape(-1)
-    K = 2 * window + 1
-    step = torch.arange(K, device=dev)
-    stepf = step.to(dt)[None, :]
-    if m_sel:
-        srows = tab.Srel_rows(n.T.reshape(-1), m_sel).reshape(D, J, m_sel)
-    g = rng.gumbel(gen, (D, C * J, K), dt, dev)
-    safe_a = torch.clamp(a_f, min=1e-12)
-    log_b = torch.log(torch.clamp(b_f, min=1e-30))
-    t = t.clone()
-    for i in range(D):
-        ni = n[None, :, i].expand(C, J).reshape(-1)
-        hlog = torch.log(torch.clamp(H[i], min=1e-30))
-        ti = t[:, :, i].reshape(-1)
-        Tj = T.reshape(-1)
-        # candidate window [lo, lo + K - 1] kept inside [1, ni]
-        lo = torch.minimum(torch.clamp(ti - window, min=1),
-                           torch.clamp(ni - K + 1, min=1))
-        tts = lo[:, None] + step[None, :]
-        # log prod_{k=1}^{tt-1} H (b + (T - ti + k) a): base = (b + (T -
-        # ti) a) / a; a == 0: (tt - lo) log(H b), both relative to tt = lo
-        base = (b_f + (Tj - ti).to(dt) * a_f) / safe_a
-        cum = _window_product(base, tts, hlog + torch.log(safe_a))
-        cum0 = stepf * (hlog + log_b)[:, None]
-        cum = torch.where(a_f[:, None] > 0, cum, cum0)
+    rows of a ``StirlingTable`` (``Srel_rows``, once a sweep) by gather;
+    0: point queries (``_ctw_srel``; on a grid at each chain's a).
+    Draws one (D, C*J, 2w+1) block of Gumbels.  Spans: ``ctw.sweep``;
+    inside it ``ctw.scan``, the loop over the categories, and in that
+    each category's Srel query, ``ctw.srel``.  ``CTW_COUNTS`` counts the
+    sweeps and their candidates from the shapes."""
+    with metrics.span("ctw.sweep"):
+        dt, dev = a.dtype, t.device
+        n = torch.as_tensor(data.n, device=dev)
+        H = torch.as_tensor(data.H, dtype=dt, device=dev)
+        J, D = data.n.shape
+        C = t.shape[0]
+        a_f = a[:, None].expand(C, J).reshape(-1)
+        b_f = b[:, None].expand(C, J).reshape(-1)
+        K = 2 * window + 1
+        CTW_COUNTS["sweeps"] += 1
+        CTW_COUNTS["candidates"] += C * J * K * D
         if m_sel:
-            # tts past the row are > ni, masked below
-            idx = torch.clamp(tts - 1, max=m_sel - 1).reshape(C, J, K)
-            srel = torch.gather(srows[i][None].expand(C, J, m_sel), 2, idx)
-            srel = srel.reshape(C * J, K)
-        else:
-            srel = _srelq(tab, ni[:, None], tts, a_f[:, None])
-        lw = cum + srel
-        ok = (tts >= 1) & (tts <= ni[:, None])
-        lw = torch.where(ok, lw, -torch.inf)
-        pick = torch.argmax(lw + g[i], dim=-1)
-        tt = torch.gather(tts, 1, pick[:, None])[:, 0].to(t.dtype)
-        tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
-        T = (Tj + tt - ti).reshape(C, J)
-        t[:, :, i] = tt.reshape(C, J)
-    return t, T
+            srows = tab.Srel_rows(n.T.reshape(-1), m_sel).reshape(D, J,
+                                                                  m_sel)
+        tab = _ctw_in_table(tab, data)
+        g = rng.gumbel(gen, (D, C * J, K), dt, dev)
+        t = t.clone()
+        with metrics.span("ctw.scan"):
+            for i in range(D):
+                ni = n[None, :, i].expand(C, J).reshape(-1)
+                hlog = torch.log(torch.clamp(H[i], min=1e-30))
+                ti = t[:, :, i].reshape(-1)
+                Tj = T.reshape(-1)
+                tts = _ctw_window(ti, ni, window)
+                with metrics.span("ctw.srel"):
+                    if m_sel:
+                        # tts past the row are > ni, masked by the weights
+                        idx = torch.clamp(tts - 1, max=m_sel - 1).reshape(
+                            C, J, K)
+                        srel = torch.gather(
+                            srows[i][None].expand(C, J, m_sel), 2, idx)
+                        srel = srel.reshape(C * J, K)
+                    else:
+                        srel = _ctw_srel(tab, ni, tts, a_f)
+                lw = _ctw_weights(srel, ni, ti, Tj, a_f, b_f, hlog, tts)
+                pick = torch.argmax(lw + g[i], dim=-1)
+                tt = torch.gather(tts, 1, pick[:, None])[:, 0].to(t.dtype)
+                tt = torch.where(ni > 0, tt, torch.zeros_like(ti))
+                T = (Tj + tt - ti).reshape(C, J)
+                t[:, :, i] = tt.reshape(C, J)
+        return t, T
 
 
 # ---------------------------------------------------------------------------

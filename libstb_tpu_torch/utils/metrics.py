@@ -35,6 +35,9 @@ count is the number of spans of one name.  The spans, each
 * ``ct.srel`` (``models/pyp.ct_sweep``, every CT sweep): the (C, J, D,
   tmax) block of Srel the sweep reads; ``ct.scan``: its loop over the
   categories;
+* ``ctw.sweep`` (``models/pyp.ctw_sweep_rel``): one windowed sweep over
+  relative candidates; inside it ``ctw.scan``, its loop over the
+  categories, and in that ``ctw.srel``, each category's Srel query;
 * ``hpyp.iter`` (``models/hpyp``): one HPYP iteration; inside it
   ``hpyp.level1`` (n0, the predictive p0, the level-1 CT sweep),
   ``hpyp.level0`` (the level-0 CT sweep) and, every ``hyper_cycle``
